@@ -1,0 +1,78 @@
+"""Point-coordinate helpers — port of vo_tpu/geom/points.py.
+
+Points are (..., N, D) or (..., D) tensors with the coordinate on the LAST
+axis; every function broadcasts over leading batch axes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def to_homogeneous(points: torch.Tensor) -> torch.Tensor:
+    """Append a 1 to the last axis: (..., D) -> (..., D+1)."""
+    return torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+
+
+def to_cartesian(points: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Divide by the last coordinate: (..., D+1) -> (..., D). A zero last
+    coordinate yields inf/nan unless eps > 0 guards it."""
+    w = points[..., -1:]
+    if eps:
+        w = torch.where(w.abs() < eps, torch.where(w < 0, -eps, eps), w)
+    return points[..., :-1] / w
+
+
+def normalize_points(
+    points: torch.Tensor, weight: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hartley isotropic normalization: centroid to the origin, mean radius
+    sqrt(D). Returns (normalized (..., N, D), T (..., D+1, D+1)) with
+    normalized_h = (T @ points_h^T)^T. `weight` (..., N) restricts the
+    statistics to weighted rows."""
+    d = points.shape[-1]
+    if weight is None:
+        centroid = points.mean(dim=-2, keepdim=True)
+        centered = points - centroid
+        mean_dist = torch.linalg.vector_norm(centered, dim=-1).mean(dim=-1)
+    else:
+        wsum = torch.clamp(weight.sum(dim=-1, keepdim=True), min=1e-12)
+        centroid = (points * weight[..., None]).sum(dim=-2, keepdim=True) / wsum[..., None]
+        centered = points - centroid
+        mean_dist = (
+            torch.linalg.vector_norm(centered, dim=-1) * weight
+        ).sum(dim=-1) / wsum[..., 0]
+    scale = math.sqrt(d) / torch.clamp(mean_dist, min=torch.finfo(points.dtype).tiny)
+    normalized = centered * scale[..., None, None]
+
+    T = torch.zeros(points.shape[:-2] + (d + 1, d + 1), dtype=points.dtype,
+                    device=points.device)
+    diag = torch.arange(d, device=points.device)
+    T[..., diag, diag] = scale[..., None]
+    T[..., :d, d] = -scale[..., None] * centroid[..., 0, :]
+    T[..., d, d] = 1.0
+    return normalized, T
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) skew-symmetric (cross-product) matrix."""
+    zeros = torch.zeros_like(v[..., 0])
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack(
+        [
+            torch.stack([zeros, -z, y], dim=-1),
+            torch.stack([z, zeros, -x], dim=-1),
+            torch.stack([-y, x, zeros], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def unskew(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 3): inverse of `skew` (off-diagonal averages)."""
+    x = 0.5 * (m[..., 2, 1] - m[..., 1, 2])
+    y = 0.5 * (m[..., 0, 2] - m[..., 2, 0])
+    z = 0.5 * (m[..., 1, 0] - m[..., 0, 1])
+    return torch.stack([x, y, z], dim=-1)

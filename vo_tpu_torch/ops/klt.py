@@ -1,0 +1,181 @@
+"""Pyramidal Lucas-Kanade optical flow, batched over keypoints — port of
+vo_tpu/ops/klt.py.
+
+Each keypoint performs ONE contiguous patch load per pyramid level and image
+(the K2 patch-gather kernel on the card, ops/kernels.py); every bilinear
+window resample after that — template setup and all solver iterations — is
+two small batched matmuls with tent-function selection matrices:
+
+    window = W_y(p) @ patch @ W_x(p)^T,   W[i, j] = max(0, 1 - |j - (p+i)|)
+
+The reference's `lax.while_loop` early exit becomes a fixed `max_iters`
+loop: converged keypoints add a delta of exactly 0, so the two agree bit for
+bit, and the fixed trip count needs no host sync. The reference's TPU-only
+48/256 over-pad of the levels (aligned DMA regions) is not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from vo_tpu_torch.ops.kernels import extract_patches
+
+# Max |d| within one level before window samples clamp at the patch border.
+MARGIN = 8
+
+
+class TrackResult(NamedTuple):
+    xy: torch.Tensor  # (K, 2) tracked positions in the next frame
+    status: torch.Tensor  # (K,) bool — converged, well-conditioned, in-bounds
+    err: torch.Tensor  # (K,) mean |I_next - I_prev| over the window
+
+
+def _extract_patches(
+    img: torch.Tensor, corner: torch.Tensor, size: int, use_pallas: bool | None = None
+) -> torch.Tensor:
+    """(K, size, size) contiguous patches at integer corners (K, 2) int32."""
+    return extract_patches(img, corner, size, use_kernel=use_pallas)
+
+
+def _sel(pos: torch.Tensor, out_size: int, in_size: int) -> torch.Tensor:
+    """(K, out_size, in_size) bilinear selection (tent) matrices: row i
+    carries the interpolation weights for input coordinate pos + i."""
+    i = torch.arange(out_size, dtype=torch.float32, device=pos.device)
+    j = torch.arange(in_size, dtype=torch.float32, device=pos.device)
+    p = pos[:, None] + i[None, :]  # (K, out)
+    return torch.clamp(1.0 - torch.abs(j[None, None, :] - p[:, :, None]), min=0.0)
+
+
+def _resample(patch: torch.Tensor, pos_xy: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Bilinear (out, out) windows from (K, P, P) patches at float corners
+    pos_xy (K, 2) — two batched f32 matmuls, no gathers."""
+    P = patch.shape[-1]
+    wy = _sel(pos_xy[:, 1], out_size, P)  # (K, out, P)
+    wx = _sel(pos_xy[:, 0], out_size, P)
+    return torch.bmm(torch.bmm(wy, patch), wx.transpose(1, 2))
+
+
+def _lk_level(
+    prev_img: torch.Tensor,
+    next_img: torch.Tensor,
+    pt_prev: torch.Tensor,  # (K, 2) template centers at this level
+    guess: torch.Tensor,  # (K, 2) flow guess at this level
+    radius: int,
+    max_iters: int,
+    eps: float,
+    min_eig_threshold: float,
+    use_pallas: bool | None = None,
+):
+    """One pyramid level of Bouguet LK for all keypoints. Returns
+    (flow (K,2), conditioned (K,) bool, err (K,))."""
+    h, w = prev_img.shape
+    win = 2 * radius + 1
+    # Edge-replicate padding keeps every patch corner below in range.
+    pad = radius + MARGIN + 2
+    prev_p = F.pad(prev_img[None, None], (pad,) * 4, mode="replicate")[0, 0]
+    next_p = F.pad(next_img[None, None], (pad,) * 4, mode="replicate")[0, 0]
+    zero = torch.zeros(2, dtype=torch.float32, device=pt_prev.device)
+    bound = torch.tensor([w - 1.0, h - 1.0], dtype=torch.float32, device=pt_prev.device)
+
+    # ---- Template + gradients: one patch, one (win+2) resample ------------
+    tp_size = win + 4
+    pt_c = torch.clamp(pt_prev, zero, bound)
+    base = torch.floor(pt_c)
+    tcorner = base.to(torch.int32) - radius - 2 + pad
+    tpatch = _extract_patches(prev_p, tcorner, tp_size, use_pallas)
+    tfrac = pt_c - base
+    T_ext = _resample(tpatch, tfrac + 1.0, win + 2)  # (K, win+2, win+2)
+    T = T_ext[:, 1:-1, 1:-1]
+    Ix = 0.5 * (T_ext[:, 1:-1, 2:] - T_ext[:, 1:-1, :-2])
+    Iy = 0.5 * (T_ext[:, 2:, 1:-1] - T_ext[:, :-2, 1:-1])
+
+    gxx = (Ix * Ix).sum(dim=(1, 2))
+    gxy = (Ix * Iy).sum(dim=(1, 2))
+    gyy = (Iy * Iy).sum(dim=(1, 2))
+    det = gxx * gyy - gxy * gxy
+    dg = gxx - gyy
+    min_eig = 0.5 * (gxx + gyy) - torch.sqrt(
+        torch.clamp(0.25 * (dg * dg) + gxy * gxy, min=0.0)
+    )
+    conditioned = (min_eig / (win * win) > min_eig_threshold) & (det.abs() > 1e-8)
+    inv_det = torch.where(det.abs() > 1e-8, 1.0 / det, 0.0)
+
+    # ---- Search patch in the next image around pt_prev + guess ------------
+    sp_size = win + 2 * MARGIN + 2
+    center0 = torch.clamp(pt_prev + guess, zero, bound)
+    scorner = torch.floor(center0).to(torch.int32) - radius - MARGIN + pad
+    spatch = _extract_patches(next_p, scorner, sp_size, use_pallas)
+    s_base = (center0 - radius) + pad - scorner.to(torch.float32)  # (K, 2)
+    pos_hi = float(sp_size - win - 1) - 1e-4
+
+    def sample_next(pos):  # pos (K, 2) -> (K, win, win)
+        return _resample(spatch, torch.clamp(pos, 0.0, pos_hi), win)
+
+    d = torch.zeros_like(pt_prev)
+    active = conditioned
+    for _ in range(max_iters):
+        diff = T - sample_next(s_base + d)
+        bx = (diff * Ix).sum(dim=(1, 2))
+        by = (diff * Iy).sum(dim=(1, 2))
+        # Solve G delta = b with the cached 2x2 inverse.
+        dx = inv_det * (gyy * bx - gxy * by)
+        dy = inv_det * (-gxy * bx + gxx * by)
+        delta = torch.where(active[:, None], torch.stack([dx, dy], dim=-1), 0.0)
+        d = d + delta
+        active = active & ((delta * delta).sum(dim=-1) > eps * eps)
+
+    err = torch.abs(sample_next(s_base + d) - T).mean(dim=(1, 2))
+    return guess + d, conditioned, err
+
+
+def pyramidal_lk(
+    prev_pyr: Sequence[torch.Tensor],
+    next_pyr: Sequence[torch.Tensor],
+    xy: torch.Tensor,
+    radius: int = 8,
+    max_iters: int = 10,
+    eps: float = 0.03,
+    max_err: float = 25.0,
+    min_eig_threshold: float = 1e-4,
+    use_pallas: bool | None = None,
+    init_flow: torch.Tensor | None = None,
+) -> TrackResult:
+    """Track keypoints xy (K, 2) from prev to next frame across a Gaussian
+    pyramid (level 0 = full res). `init_flow` (K, 2) seeds the level-0 flow
+    (motion-model prediction); non-finite or absurd guesses fall back to 0.
+    `use_pallas` routes the patch gathers: None = by device, False = plain."""
+    levels = len(prev_pyr)
+    if init_flow is None:
+        flow = torch.zeros_like(xy)
+    else:
+        h0, w0 = prev_pyr[0].shape
+        sane = (
+            torch.isfinite(init_flow).all(dim=-1)
+            & (init_flow[:, 0].abs() < 0.5 * w0)
+            & (init_flow[:, 1].abs() < 0.5 * h0)
+        )
+        flow = torch.where(sane[:, None], init_flow, 0.0) / (2.0 ** (levels - 1))
+    conditioned = torch.ones(xy.shape[0], dtype=torch.bool, device=xy.device)
+    err = torch.zeros(xy.shape[0], dtype=torch.float32, device=xy.device)
+    for lvl in range(levels - 1, -1, -1):
+        scale = 2.0**lvl
+        flow, cond_l, err = _lk_level(
+            prev_pyr[lvl], next_pyr[lvl], xy / scale, flow,
+            radius, max_iters, eps, min_eig_threshold, use_pallas,
+        )
+        if lvl > 0:
+            flow = flow * 2.0
+        conditioned = conditioned & cond_l
+    new_xy = xy + flow
+    h, w = prev_pyr[0].shape
+    in_bounds = (
+        (new_xy[:, 0] >= radius)
+        & (new_xy[:, 0] < w - radius)
+        & (new_xy[:, 1] >= radius)
+        & (new_xy[:, 1] < h - radius)
+    )
+    status = conditioned & in_bounds & (err < max_err)
+    return TrackResult(xy=new_xy, status=status, err=err)

@@ -1,0 +1,49 @@
+"""Batched DLT triangulation — port of vo_tpu/ops/triangulate.py.
+
+Each point contributes a 4x4 system from two row-normalized skew-constraint
+rows per view; the landmark is the smallest eigenvector of A^T A. The sign of
+that eigenvector differs between LAPACK and cuSOLVER, which dehomogenizing
+removes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vo_tpu_torch.ops.linalg import eigh_finite
+
+
+def _dlt_rows(P: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """[u P3 - P1 ; v P3 - P2], row-normalized. P (..., 3, 4), uv (..., 2)
+    -> (..., 2, 4)."""
+    r0 = uv[..., 0:1] * P[..., 2, :] - P[..., 0, :]
+    r1 = uv[..., 1:2] * P[..., 2, :] - P[..., 1, :]
+    rows = torch.stack([r0, r1], dim=-2)
+    norm = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+    return rows / torch.clamp(norm, min=1e-20)
+
+
+def _guard(w: torch.Tensor, tiny: float) -> torch.Tensor:
+    return torch.where(w.abs() < tiny, torch.where(w < 0, -tiny, tiny), w)
+
+
+def triangulate_dlt(
+    P1: torch.Tensor, P2: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor
+) -> torch.Tensor:
+    """P1, P2: (3, 4) or (N, 3, 4); uv1, uv2: (N, 2) -> (N, 3) points in the
+    frame the projection matrices map from."""
+    if P1.ndim == 2:
+        P1 = P1.expand(uv1.shape[:-1] + (3, 4))
+    if P2.ndim == 2:
+        P2 = P2.expand(uv2.shape[:-1] + (3, 4))
+    A = torch.cat([_dlt_rows(P1, uv1), _dlt_rows(P2, uv2)], dim=-2)  # (N, 4, 4)
+    _, vecs = eigh_finite(A.transpose(-1, -2) @ A)  # ascending eigenvalues
+    X_h = vecs[..., :, 0]
+    return X_h[..., :3] / _guard(X_h[..., 3:4], 1e-12)
+
+
+def reprojection_error(P: torch.Tensor, X: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Euclidean pixel reprojection error. P (...,3,4), X (...,3), uv (...,2)."""
+    Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
+    p = (P @ Xh[..., None])[..., 0]
+    return torch.linalg.vector_norm(p[..., :2] / _guard(p[..., 2:3], 1e-12) - uv, dim=-1)

@@ -2,25 +2,37 @@
 """Smoke test of vo_tpu_torch on one CUDA GPU — the quickest proof that the
 port builds, agrees with its plain PyTorch versions, and runs its main path.
 
-    python3 chip_smoke.py            # full headline run (600 frames)
-    python3 chip_smoke.py --frames 60  # shorter rehearsal of the same phases
+    python3 chip_smoke.py            # full runs (600 frames a sequence)
+    python3 chip_smoke.py --frames 60 --multiseq-frames 40  # a short rehearsal
 
 Phases:
   1. identify the card (nvidia-smi name and power limit);
-  2. build the CUDA kernels from vo_tpu_torch/csrc (nvcc, sm_90a);
-  3. K1 corner_response_nms: kernel vs plain version on the card, both modes,
-     several shapes and a batch of 3; both timed at 480x640;
-  4. K2 extract_patches: kernel vs plain, bit-identical, sizes 21/35, K=1024
-     on a 516x676 level (corners needing clamping included), a batch of 3;
+  2. `build`: the CUDA kernels from vo_tpu_torch/csrc (nvcc, sm_90a), and the
+     time of an empty launch (the floor under every kernel time);
+  3. `k1` corner_response_nms: kernel vs plain version on the card, both
+     modes, several shapes and a batch of 3; both timed at 480x640;
+  4. `k2` extract_patches: kernel vs plain, bit-identical, sizes 21/35,
+     K=1024 on a 516x676 level (corners needing clamping included), a batch
+     of 3; both timed;
+  5. `k1b`: the corner kernel over a batch of 6 lanes (6, 480, 640), both
+     modes, against the plain version; both timed;
+  6. `k2b`: the gather kernel over 6 lanes, (6, 516, 676) and the coarsest
+     level (6, 96, 116) with (6, 512, 2) corners, sizes 21/35, bit-identical;
      both timed;
-  5. the headline run: render the synthetic city on the device, check two
-     frames against the reference numpy renderer, run bootstrap + vo_step
-     over the sequence with VOConfig(capacity=1024), and gate the launch
-     counts, finiteness, pose_ok count and ATE against exact ground truth.
+  7. `headline`: render the synthetic city on the device, check two frames
+     against the numpy renderer, run bootstrap + vo_step over the sequence
+     with VOConfig(capacity=1024), and gate the launch counts, finiteness,
+     pose_ok count and ATE against exact ground truth;
+  8. `multiseq`: the lockstep multi-sequence evaluation at full width (the
+     entry points of run_multiseq_torch.py --full): six distinct cities,
+     640x480, capacity 512, bootstrapped alone, stacked and rolled in
+     lockstep in chunks of 64, then the distorted-lens lane on its own;
+     gates the batched launch counts, finiteness, per-lane pose_ok and ATE.
 
-Prints the card line, a JSON line describing every kernel, and as the last
-line {"ok": true, "device": {...}}. Any failed phase exits non-zero without
-that line; so does a machine without CUDA.
+Prints the card line, a JSON line describing every kernel (its time beside
+its bound, the plain version and, where there is one, a single PyTorch
+call), and as the last line {"ok": true, "device": {...}}. Any failed phase
+exits non-zero without that line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -41,6 +53,31 @@ POSE_OK_SLACK = 7  # pose_ok must hold on all but this many frames
 
 K1_SHAPES = [(150, 260), (64, 200), (30, 40), (480, 640)]
 K1_MODES = [("shi_tomasi", 7, 8), ("harris", 9, 5)]
+
+# The multi-sequence phase. Per-lane ATE of the JAX package's own run of
+# these lanes (EVAL.md, taken on a TPU): a yardstick of ACCURACY only.
+MULTISEQ_LANES = 6
+MULTISEQ_CAPACITY = 512
+MULTISEQ_REFERENCE_ATE_M = {
+    "city_lr": 1.64, "city_rl": 2.47, "scurve": 1.40, "stopgo": 1.05,
+    "tight": 1.58, "longrun": 0.52, "distorted": 0.91,
+}
+# A lane passes at twice its yardstick, and never below 2 m: one RANSAC draw
+# moves the port's ATE by a factor of two on the headline (0.66-1.37 m over
+# four seeds), while a broken run is off by an order of magnitude.
+MULTISEQ_ATE_FACTOR = 2.0
+MULTISEQ_ATE_FLOOR_M = 2.0
+# pose_ok must hold on 95% of a lane's frames (567 of 597).
+MULTISEQ_POSE_OK_SHARE = 0.95
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# Arithmetic of the corner kernel per pixel: Sobel 14, gradient products 3,
+# three 7x7 separable box sums 3*(6+6), the eigenvalue or Harris score 10,
+# two separable (2r+1)^2 max pools at r=8 2*(16+16), the maximum test 3.
+K1_FLOP_PER_PIXEL = 14 + 3 + 36 + 10 + 64 + 3
 
 
 def _card_line() -> str:
@@ -78,14 +115,45 @@ def _interleaved(plain, kernel) -> tuple[float, float]:
     return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
 
 
+def _bound(record: dict, n_bytes: float, n_flop: float) -> None:
+    """The least time the card could take: the larger of bytes over the HBM
+    rate and operations over the f32 rate."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_flop = 1e3 * n_flop / F32_FLOP_PER_S
+    record.update(bound_ms=max(t_bytes, t_flop),
+                  bound_by="bytes" if t_bytes >= t_flop else "operations")
+
+
+def _k1_bound(record: dict, shape) -> None:
+    """The corner kernel reads the image once and writes the map once."""
+    n = int(np.prod(shape))
+    _bound(record, 2 * n * 4, n * K1_FLOP_PER_PIXEL)
+
+
+def _k2_bound(record: dict, img_shape, corners_shape, size: int) -> None:
+    """The gather writes every patch once and reads the pixels it gathers
+    once, at most the whole image, plus the corners; it computes nothing."""
+    n_out = int(np.prod(corners_shape[:-1])) * size * size
+    n_img = int(np.prod(img_shape))
+    _bound(record, (n_out + min(n_out, n_img)) * 4 + int(np.prod(corners_shape)) * 4, 0)
+
+
 def phase_k1(dev, record: dict) -> None:
+    _k1_parity(dev, record, "k1", [(shape, m) for shape in K1_SHAPES for m in K1_MODES]
+               + [((3, 96, 200), K1_MODES[0])], (480, 640))
+
+
+def phase_k1b(dev, record: dict) -> None:
+    shape = (MULTISEQ_LANES, 480, 640)
+    _k1_parity(dev, record, "k1b", [(shape, m) for m in K1_MODES], shape)
+
+
+def _k1_parity(dev, record: dict, tag: str, cases, timed_shape) -> None:
     import torch
     from vo_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(2023)
     worst = 0.0
-    cases = [(shape, m) for shape in K1_SHAPES for m in K1_MODES]
-    cases.append(((3, 96, 200), K1_MODES[0]))
     for shape, (mode, patch, r) in cases:
         img = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32), device=dev)
         got = kernels.corner_response_nms(img, mode, patch, 0.08, r, use_kernel=True)
@@ -101,47 +169,73 @@ def phase_k1(dev, record: dict) -> None:
             if not bool((diff <= 1e-2 + 1e-5 * want[fw].abs()).all()):
                 raise AssertionError(f"K1 {mode} {shape}: max abs err {err}")
             worst = max(worst, err)
-        print(f"[k1] {mode:10s} shape={shape} maxima={int(fw.sum())} "
+        print(f"[{tag}] {mode:10s} shape={shape} maxima={int(fw.sum())} "
               f"max_abs_err={float(diff.max()) if bool(fw.any()) else 0.0:.3g} ok")
-    img = torch.as_tensor(rng.uniform(0, 255, (480, 640)).astype(np.float32), device=dev)
+    img = torch.as_tensor(rng.uniform(0, 255, timed_shape).astype(np.float32), device=dev)
     ms, plain_ms = _interleaved(
         lambda: kernels.corner_response_nms_plain(img, "shi_tomasi", 7, 0.08, 8),
         lambda: kernels.corner_response_nms(img, "shi_tomasi", 7, 0.08, 8, use_kernel=True),
     )
-    print(f"[k1] 480x640 shi_tomasi p7 r8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    record.update(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    # No single PyTorch call computes this function: library_ms stays null.
+    record.update(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None)
+    _k1_bound(record, timed_shape)
+    print(f"[{tag}] {timed_shape} shi_tomasi p7 r8: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {record['bound_ms']:.5f} ms ({record['bound_by']})")
 
 
-def phase_k2(dev, record: dict) -> None:
+def _k2_case(dev, rng, tag: str, img_shape, k: int, size: int, margin: int, timed: bool):
+    """Kernel against plain, bit-identical, on corners across the level and
+    beyond its edges (negative and clamped starts). Returns (kernel_ms,
+    plain_ms) when timed."""
     import torch
     from vo_tpu_torch.ops import kernels
 
+    h, w = img_shape[-2:]
+    lead = tuple(img_shape[:-2])
+    img = torch.as_tensor(rng.uniform(0, 255, img_shape).astype(np.float32), device=dev)
+    cor_np = np.stack([rng.integers(-margin, w + margin, lead + (k,)),
+                       rng.integers(-margin, h + margin, lead + (k,))], -1)
+    cor = torch.as_tensor(cor_np.astype(np.int32), device=dev)
+    got = kernels.extract_patches(img, cor, size, use_kernel=True)
+    want = kernels.extract_patches_plain(img, cor, size)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag} {img_shape} size {size}: not bit-identical")
+    if not timed:
+        print(f"[{tag}] K={k} size={size} on {img_shape}: bit-identical")
+        return None
+    times = _interleaved(
+        lambda: kernels.extract_patches_plain(img, cor, size),
+        lambda: kernels.extract_patches(img, cor, size, use_kernel=True),
+    )
+    print(f"[{tag}] K={k} size={size} on {img_shape}: bit-identical; kernel "
+          f"{times[0]:.4f} ms, plain {times[1]:.4f} ms")
+    return times
+
+
+def _k2_record(record: dict, times, img_shape, corners_shape, size: int) -> None:
+    # The plain version is itself ONE advanced-indexing call of PyTorch, so
+    # its time is also the library call's.
+    record.update(max_abs_err=0.0, ms=times[0], plain_ms=times[1], library_ms=times[1])
+    _k2_bound(record, img_shape, corners_shape, size)
+
+
+def phase_k2(dev, record: dict) -> None:
     rng = np.random.default_rng(7)
-    h, w, k = 516, 676, 1024
-    img = torch.as_tensor(rng.uniform(0, 255, (h, w)).astype(np.float32), device=dev)
-    times = {}
-    for size in (21, 35):
-        # Corners across the level and beyond its edges (clamped starts).
-        cor_np = np.stack([rng.integers(-40, w + 40, k), rng.integers(-40, h + 40, k)], -1)
-        cor = torch.as_tensor(cor_np.astype(np.int32), device=dev)
-        got = kernels.extract_patches(img, cor, size, use_kernel=True)
-        want = kernels.extract_patches_plain(img, cor, size)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K2 size {size}: not bit-identical")
-        times[size] = _interleaved(
-            lambda: kernels.extract_patches_plain(img, cor, size),
-            lambda: kernels.extract_patches(img, cor, size, use_kernel=True),
-        )
-        print(f"[k2] K={k} size={size} on {h}x{w}: bit-identical; kernel "
-              f"{times[size][0]:.4f} ms, plain {times[size][1]:.4f} ms")
-    imgs = torch.as_tensor(rng.uniform(0, 255, (3, 104, 384)).astype(np.float32), device=dev)
-    cor = torch.as_tensor(rng.integers(-20, 400, (3, 70, 2)).astype(np.int32), device=dev)
-    got = kernels.extract_patches(imgs, cor, 17, use_kernel=True)
-    if not torch.equal(got, kernels.extract_patches_plain(imgs, cor, 17)):
-        raise AssertionError("K2 batch of 3: not bit-identical")
-    print("[k2] B=3 K=70 size=17: bit-identical")
-    record.update(max_abs_err=0.0, ms=times[35][0], plain_ms=times[35][1])
+    shape, k = (516, 676), 1024
+    times = {size: _k2_case(dev, rng, "k2", shape, k, size, 40, True) for size in (21, 35)}
+    _k2_case(dev, rng, "k2", (3, 104, 384), 70, 17, 20, False)
+    _k2_record(record, times[35], shape, (k, 2), 35)
+
+
+def phase_k2b(dev, record: dict) -> None:
+    rng = np.random.default_rng(11)
+    b, k = MULTISEQ_LANES, MULTISEQ_CAPACITY
+    shape = (b, 516, 676)  # level 0 of 480x640 with the LK pad of 18
+    times = {size: _k2_case(dev, rng, "k2b", shape, k, size, 40, True) for size in (21, 35)}
+    for size in (21, 35):  # the coarsest of the 4 levels, 60x80 + 2*18
+        _k2_case(dev, rng, "k2b", (b, 96, 116), k, size, 40, True)
+    _k2_record(record, times[35], shape, (b, k, 2), 35)
 
 
 def phase_headline(dev, n_frames: int, records: dict) -> None:
@@ -225,13 +319,116 @@ def phase_headline(dev, n_frames: int, records: dict) -> None:
         raise AssertionError("; ".join(fails))
 
 
+def phase_multiseq(dev, n_frames: int, records: dict) -> None:
+    """The lockstep multi-sequence evaluation through the functions that
+    `run_multiseq_torch.py --full` runs."""
+    import dataclasses
+
+    import torch
+
+    import run_multiseq_torch as runner
+    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.ops import kernels
+    from vo_tpu_torch.utils.config import VOConfig
+
+    cfg = VOConfig(capacity=MULTISEQ_CAPACITY)
+    levels = cfg.klt.pyramid_levels
+    full = n_frames == 600
+    fails = []
+
+    t0 = time.perf_counter()
+    seqs = synthetic.multiseq_sequences(dev, n_frames)
+    torch.cuda.synchronize()
+    names = list(seqs)
+    b = len(names)
+    print(f"[multiseq] rendered {b} lanes of {tuple(seqs[names[0]].frames.shape)} on the "
+          f"device in {time.perf_counter() - t0:.1f} s")
+    if b != MULTISEQ_LANES:
+        fails.append(f"{b} lanes, want {MULTISEQ_LANES}")
+
+    # The six lanes: bootstrapped alone, stacked, rolled in lockstep.
+    kernels.reset_launch_counts()
+    boot, outs, dt = runner.run_lockstep(seqs, cfg, adaptive=synthetic.ADAPTIVE_LANES)
+    counts = dict(kernels.launch_counts)
+    poses = outs.pose.cpu().numpy()  # (N, B, 4, 4)
+    steps = poses.shape[0]
+    pose_ok = outs.pose_ok.sum(dim=0).tolist()
+    frozen = outs.frozen.sum(dim=0).tolist()
+    print(f"[multiseq] {steps} lockstep steps of {b} lanes in {dt:.2f} s = "
+          f"{1e3 * dt / steps:.1f} ms a step, {b * steps / dt:.2f} frames/s aggregate, "
+          f"{steps / dt:.2f} frames/s a lane")
+    print(f"[multiseq] launches (bootstraps + rollout): {json.dumps(counts)}")
+    want = {
+        "corner_response_nms": b, "extract_patches": 2 * levels * b,
+        "corner_response_nms_batched": steps,
+        "extract_patches_batched": 2 * levels * steps,
+    }
+    if counts != want:
+        fails.append(f"launches {counts}, want {want}")
+    records["corner_response_nms_batched"]["launches"] = counts["corner_response_nms_batched"]
+    records["extract_patches_batched"]["launches"] = counts["extract_patches_batched"]
+
+    def judge(name, est, gt, n_ok, n_frozen, n_steps):
+        from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
+
+        finite = int(np.isfinite(est[2:]).all(axis=(1, 2)).sum())
+        ate = ate_rmse(positions_from_poses(est), positions_from_poses(gt))
+        t_rpe, r_rpe = rpe(est, gt)
+        ref = MULTISEQ_REFERENCE_ATE_M[name]
+        gate = max(MULTISEQ_ATE_FACTOR * ref, MULTISEQ_ATE_FLOOR_M)
+        print(f"[multiseq] lane {name:9s} ATE {ate:.4f} m (yardstick {ref} m, gate "
+              f"{gate:.2f} m), RPE {t_rpe:.5f} m / {np.degrees(r_rpe):.5f} deg, pose_ok "
+              f"{n_ok}/{n_steps}, finite {finite}/{n_steps}, frozen {n_frozen}")
+        if finite != n_steps or n_frozen:
+            fails.append(f"{name}: {n_steps - finite} non-finite poses, {n_frozen} frozen")
+        if n_ok < int(np.ceil(MULTISEQ_POSE_OK_SHARE * n_steps)):
+            fails.append(f"{name}: pose_ok on {n_ok}/{n_steps} frames, want >= "
+                         f"{int(np.ceil(MULTISEQ_POSE_OK_SHARE * n_steps))}")
+        if full and not ate <= gate:
+            fails.append(f"{name}: ATE {ate:.4f} m above its {gate:.2f} m gate")
+
+    for i, name in enumerate(names):
+        gt = seqs[name].gt_poses[[0, 2] + list(range(3, 3 + steps))]
+        judge(name, runner.lane_poses(boot[i], poses[:, i]), gt, pose_ok[i], frozen[i], steps)
+    del seqs, outs
+    torch.cuda.empty_cache()
+
+    # The distorted-lens lane on its own (distortion is static in the config).
+    dseq = synthetic.render_sequence(synthetic.distorted_spec(n_frames), dev)
+    dcfg = dataclasses.replace(cfg, dist=synthetic.DISTORTED_DIST)
+    kernels.reset_launch_counts()
+    dboot, douts, ddt = runner.run_single(dseq, dcfg, seed=2030)
+    dcounts = dict(kernels.launch_counts)
+    dsteps = douts.pose.shape[0]
+    print(f"[multiseq] distorted lane: {dsteps} steps in {ddt:.2f} s = "
+          f"{dsteps / ddt:.2f} frames/s; launches {json.dumps(dcounts)}")
+    dwant = {
+        "corner_response_nms": dsteps + 1, "extract_patches": 2 * levels * (dsteps + 1),
+        "corner_response_nms_batched": 0, "extract_patches_batched": 0,
+    }
+    if dcounts != dwant:
+        fails.append(f"distorted lane launches {dcounts}, want {dwant}")
+    dgt = dseq.gt_poses[[0, 2] + list(range(3, 3 + dsteps))]
+    judge("distorted", runner.lane_poses(dboot, douts.pose.cpu().numpy()), dgt,
+          int(douts.pose_ok.sum()), int(douts.frozen.sum()), dsteps)
+    records["corner_response_nms"]["launches_multiseq"] = (
+        counts["corner_response_nms"] + dcounts["corner_response_nms"])
+    records["extract_patches"]["launches_multiseq"] = (
+        counts["extract_patches"] + dcounts["extract_patches"])
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--frames", type=int, default=600,
                         help="length of the headline sequence (default 600)")
+    parser.add_argument("--multiseq-frames", type=int, default=600,
+                        help="frames per lane of the multi-sequence phase (default "
+                             "600; the ATE gates apply only at full length)")
     args = parser.parse_args(argv)
-    if args.frames < 4:
-        parser.error("--frames must be at least 4")
+    if min(args.frames, args.multiseq_frames) < 4:
+        parser.error("--frames and --multiseq-frames must be at least 4")
 
     import torch
 
@@ -263,11 +460,22 @@ def main(argv=None) -> int:
             name="corner_response_nms", route="cuda",
             source="vo_tpu_torch/csrc/corner_nms.cu",
             replaces="vo_tpu/ops/pallas_kernels.py:196"),
+        "corner_response_nms_batched": dict(
+            name="corner_response_nms_batched", route="cuda",
+            source="vo_tpu_torch/csrc/corner_nms.cu",
+            replaces="vo_tpu/ops/pallas_kernels.py:257"),
         "extract_patches": dict(
             name="extract_patches", route="cuda",
             source="vo_tpu_torch/csrc/patch_gather.cu",
             replaces="vo_tpu/ops/pallas_kernels.py:387"),
+        "extract_patches_batched": dict(
+            name="extract_patches_batched", route="cuda",
+            source="vo_tpu_torch/csrc/patch_gather.cu",
+            replaces="vo_tpu/ops/pallas_kernels.py:464"),
     }
+    for rec in records.values():
+        rec.update(launches=0, max_abs_err=None, ms=None, plain_ms=None,
+                   bound_ms=None, bound_by=None, library_ms=None)
     failed = []
 
     def run(name, fn, *a):
@@ -290,12 +498,22 @@ def main(argv=None) -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     print(f"[build] {line.strip()}")
+        from vo_tpu_torch.ops import kernels
+
+        floor = _time_ms(lambda: kernels.empty_launch(dev), reps=200)
+        print(f"[build] an empty launch through the same ctypes path: {floor:.4f} ms "
+              f"(the floor under every kernel time below)")
+        for rec in records.values():
+            rec["empty_launch_ms"] = floor
 
     run("build", build)
     if "build" not in failed:
         run("k1", phase_k1, dev, records["corner_response_nms"])
         run("k2", phase_k2, dev, records["extract_patches"])
+        run("k1b", phase_k1b, dev, records["corner_response_nms_batched"])
+        run("k2b", phase_k2b, dev, records["extract_patches_batched"])
     run("headline", phase_headline, dev, args.frames, records)
+    run("multiseq", phase_multiseq, dev, args.multiseq_frames, records)
 
     print(f"[card] {card}")
     print(json.dumps({"kernels": list(records.values())}))

@@ -3,15 +3,16 @@
 A second package beside `vo_tpu/`, which stays the reference. Every module
 mirrors its `vo_tpu` counterpart's name, public functions, argument order and
 array layouts, so the two can be run side by side on the same numpy inputs
-(tests/test_torch_*.py). The two Pallas TPU kernels on the main path are
-hand-written CUDA C++ kernels for Hopper (`csrc/`, bound in `ops/kernels.py`),
-each with a plain PyTorch version beside it that is both the CPU path and the
-kernel's oracle.
+(tests/test_torch_*.py). The Pallas TPU kernels (two, each with a batched
+twin) are two hand-written CUDA C++ kernels for Hopper with a batch dimension
+(`csrc/`, bound in `ops/kernels.py`), each with a plain PyTorch version beside
+it that is both the CPU path and the kernel's oracle.
 
-This package imports torch and never jax: it never runs `import vo_tpu`
-(whose `__init__` imports jax). The framework-free numpy modules of
-`vo_tpu` (the config dataclasses, the synthetic-city builders, ATE/RPE) are
-loaded by file path instead (`_shared.py`).
+This package imports torch and never jax, and nothing of `vo_tpu`: it keeps
+its own copies of the reference's numpy-only modules (the config dataclasses
+in `utils/config.py`, the synthetic-city generators in `data/city.py`, ATE/RPE
+in `data/evaluate.py`), and tests/test_torch_no_jax.py holds the copies equal
+to the reference.
 
 Package map:
   vo_tpu_torch.geom    — homogeneous coords, Hartley normalization, SO(3)/SE(3),
@@ -20,9 +21,12 @@ Package map:
                          RANSAC, 8-point/E, DLT, P3P, small SPD solves, and
                          the CUDA kernels (ops/kernels.py, ops/_build.py)
   vo_tpu_torch.models  — fixed-capacity feature table, sliding-window BA,
-                         bootstrap + per-frame step
-  vo_tpu_torch.data    — on-device synthetic-city renderer, ATE/RPE
-  vo_tpu_torch.utils   — the shared VOConfig tree
+                         bootstrap + per-frame step (one sequence, or B lanes
+                         in lockstep)
+  vo_tpu_torch.parallel — lockstep multi-sequence rollout (multiseq.py)
+  vo_tpu_torch.data    — synthetic-city generators and on-device renderer,
+                         the multi-sequence lane set, ATE/RPE
+  vo_tpu_torch.utils   — the VOConfig tree
 """
 
 __version__ = "0.1.0"

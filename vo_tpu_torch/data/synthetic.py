@@ -1,14 +1,17 @@
 """The synthetic city sequence, rendered on the device — port of
 `render_frames_accel` of vo_tpu/data/synthetic.py.
 
-The city, texture and path builders and the numpy reference renderer
-(`render_frame`) are the reference's own, loaded by file path (see
-vo_tpu_torch/_shared.py). The ray caster is re-expressed for torch with the
-same float32 expression trees as the reference's `_hit`/`_shade` (its
-namespace shim cannot take torch: `xp.float32(...)` and `.astype` are
-numpy/jnp-only), so the two renderers agree to quantization noise. The
-per-rect hit loop runs over chunks of rects at once; the nearest hit keeps
-the reference's tie rule (the lowest rect index wins).
+The city, texture and path generators and the numpy reference renderer
+(`render_frame`) live in data/city.py, the port's own numpy copy. The ray
+caster is re-expressed for torch with the same float32 expression trees as
+the numpy `_hit`/`_shade` (their namespace shim cannot take torch:
+`xp.float32(...)` and `.astype` are numpy-only), so the two renderers agree
+to quantization noise. The per-rect hit loop runs over chunks of rects at
+once; the nearest hit keeps the reference's tie rule (the lowest rect index
+wins).
+
+`multiseq_specs` holds the six lanes of the multi-sequence evaluation and
+`DISTORTED_DIST` its distorted-lens lane (run_multiseq.py --full).
 """
 
 from __future__ import annotations
@@ -19,17 +22,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vo_tpu_torch._shared import load
-
-_syn = load("data/synthetic.py")
-
-DEFAULT_SPEC = _syn.DEFAULT_SPEC
-PathSpec = _syn.PathSpec
-SyntheticSpec = _syn.SyntheticSpec
-build_city = _syn.build_city
-make_path = _syn.make_path
-make_texture = _syn.make_texture
-render_frame = _syn.render_frame
+from vo_tpu_torch.data.city import (  # noqa: F401  (re-exported)
+    DEFAULT_SPEC,
+    PathSpec,
+    SyntheticSpec,
+    _rect_arrays,
+    _undistort_normalized,
+    build_city,
+    make_path,
+    make_texture,
+    render_frame,
+)
 
 _INF = float("inf")
 # Rects intersected per pass: bounds the (chunk, H, W) temporaries at 640x480.
@@ -63,7 +66,7 @@ def _rays(K, width: int, height: int, dist, device):
     nx = xs[None, :].expand(height, width)
     ny = ys[:, None].expand(height, width)
     if any(abs(float(d)) > 0 for d in dist):
-        nx, ny = _syn._undistort_normalized(None, nx, ny, dist)
+        nx, ny = _undistort_normalized(None, nx, ny, dist)
     return nx, ny, torch.ones_like(nx)
 
 
@@ -165,7 +168,7 @@ def render_frames_torch(rects, tex, poses, K, width: int, height: int,
     width, height = int(width), int(height)
     dist = tuple(float(d) for d in dist)
     K_np = np.asarray(K, np.float64)
-    arrays = tuple(torch.as_tensor(a, device=device) for a in _syn._rect_arrays(rects))
+    arrays = tuple(torch.as_tensor(a, device=device) for a in _rect_arrays(rects))
     texd = tuple(torch.as_tensor(np.asarray(t, np.float32), device=device) for t in tex)
     dx, dy, dz = _rays(K_np, width, height, dist, device)
     poses_d = torch.as_tensor(np.asarray(poses, np.float32), device=device)
@@ -226,3 +229,81 @@ def headline_sequence(device, num_frames: int | None = None) -> Sequence:
     if num_frames is not None and num_frames != spec.num_frames:
         spec = dataclasses.replace(spec, num_frames=num_frames)
     return render_sequence(spec, device)
+
+
+# ---------------------------------------------------------------------------
+# The multi-sequence evaluation set (run_multiseq.py --full)
+# ---------------------------------------------------------------------------
+
+#: Lanes that run the motion/covisibility-gated keyframe policy; the
+#: constant-speed lanes keep the fixed cadence.
+ADAPTIVE_LANES = frozenset({"stopgo", "tight"})
+
+#: Brown-Conrady (k1, k2, p1, p2, k3) of the distorted-lens lane. Distortion
+#: is static in the config, so this lane runs on its own, not in the batch.
+DISTORTED_DIST = (-0.28, 0.08, 0.0005, -0.0005, 0.0)
+
+
+def multiseq_specs(frames: int = 600) -> dict:
+    """Six distinct full-length drives over six distinct procedural cities
+    (the seed varies the scene AND the path noise), by lane name."""
+    def spec(seed, segments, stops=()):
+        return dataclasses.replace(
+            DEFAULT_SPEC, num_frames=frames, seed=seed,
+            path=PathSpec(segments=segments, stops=stops),
+        )
+
+    return {
+        "city_lr": spec(0, (("straight", 50.0), ("turn", 90.0, 8.0),
+                            ("straight", 45.0), ("turn", -90.0, 8.0),
+                            ("straight", 60.0))),
+        "city_rl": spec(1, (("straight", 40.0), ("turn", -90.0, 9.0),
+                            ("straight", 55.0), ("turn", 90.0, 7.0),
+                            ("straight", 55.0))),
+        "scurve": spec(2, (("straight", 30.0), ("turn", 45.0, 20.0),
+                           ("turn", -45.0, 20.0), ("straight", 30.0),
+                           ("turn", -45.0, 20.0), ("turn", 45.0, 20.0),
+                           ("straight", 25.0))),
+        "stopgo": spec(3, (("straight", 40.0), ("turn", 90.0, 8.0),
+                           ("straight", 35.0), ("turn", -90.0, 8.0),
+                           ("straight", 30.0)),
+                       stops=((70, 45), (240, 45))),
+        "tight": spec(4, (("straight", 35.0), ("turn", 90.0, 6.0),
+                          ("straight", 30.0), ("turn", 90.0, 6.0),
+                          ("straight", 35.0), ("turn", 90.0, 6.0),
+                          ("straight", 30.0))),
+        "longrun": spec(5, (("straight", 90.0), ("turn", -60.0, 15.0),
+                            ("straight", 70.0))),
+    }
+
+
+def distorted_spec(frames: int = 600) -> SyntheticSpec:
+    """The distorted-lens lane: the `city_lr` drive in another city, seen
+    through the `DISTORTED_DIST` lens."""
+    return dataclasses.replace(
+        multiseq_specs(frames)["city_lr"], seed=6, dist=DISTORTED_DIST)
+
+
+def select_lanes(names, lanes) -> list:
+    """The lane names a `--full-lanes` value picks: a count ("3", 0 or empty
+    = all), or a comma-separated list of names."""
+    names = list(names)
+    lanes = "" if lanes is None else str(lanes).strip()
+    if not lanes:
+        return names
+    if lanes.isdigit():
+        return names[: int(lanes)] if int(lanes) > 0 else names
+    want = [w.strip() for w in lanes.split(",") if w.strip()]
+    unknown = [w for w in want if w not in names]
+    if unknown:
+        raise ValueError(f"unknown lanes {unknown}; have {names}")
+    return want
+
+
+def multiseq_sequences(device, frames: int = 600, lanes=None) -> dict:
+    """The lanes of the multi-sequence evaluation rendered on `device`, lane
+    by lane: name -> Sequence, each (frames, 480, 640) f32 (737 MB a lane at
+    600 frames, 4.4 GB for all six). `lanes` as `select_lanes` takes it."""
+    specs = multiseq_specs(frames)
+    return {name: render_sequence(specs[name], device)
+            for name in select_lanes(specs, lanes)}

@@ -13,11 +13,13 @@ from typing import NamedTuple
 import torch
 
 from vo_tpu_torch.geom.lie import pose_inverse
-from vo_tpu_torch.geom.points import to_cartesian, to_homogeneous
+from vo_tpu_torch.geom.points import bmat, to_cartesian, to_homogeneous
 
 
 class Camera(NamedTuple):
-    """K (3, 3) intrinsics, pose (4, 4) w_T_c, dist (5,) (k1, k2, p1, p2, k3)."""
+    """K (3, 3) intrinsics, pose (4, 4) w_T_c, dist (5,) (k1, k2, p1, p2, k3).
+    K and pose may carry leading lane axes (B, 3, 3) / (B, 4, 4); `dist` is
+    one lens shared by all lanes (distortion is static in the config)."""
 
     K: torch.Tensor
     pose: torch.Tensor
@@ -27,7 +29,8 @@ class Camera(NamedTuple):
     def create(cls, K, pose=None, dist=None, device=None) -> "Camera":
         K = torch.as_tensor(K, dtype=torch.float32, device=device)
         dev = K.device
-        pose = (torch.eye(4, dtype=torch.float32, device=dev) if pose is None
+        pose = (torch.eye(4, dtype=torch.float32, device=dev).expand(K.shape[:-2] + (4, 4))
+                if pose is None
                 else torch.as_tensor(pose, dtype=torch.float32, device=dev))
         dist = (torch.zeros(5, dtype=torch.float32, device=dev) if dist is None
                 else torch.as_tensor(dist, dtype=torch.float32, device=dev))
@@ -39,19 +42,19 @@ class Camera(NamedTuple):
 
     @property
     def projection_matrix(self) -> torch.Tensor:
-        return self.K @ self.extrinsics[:3, :4]
+        return self.K @ self.extrinsics[..., :3, :4]
 
     def project_world(self, points_w: torch.Tensor) -> torch.Tensor:
         return project(self.projection_matrix, points_w)
 
     def normalized_coords(self, pixels: torch.Tensor) -> torch.Tensor:
-        Kinv = torch.linalg.inv(self.K)
-        return to_cartesian((Kinv @ to_homogeneous(pixels)[..., None])[..., 0])
+        h = to_homogeneous(pixels)
+        return to_cartesian((bmat(torch.linalg.inv(self.K), h) @ h[..., None])[..., 0])
 
     def distort_points(self, pixels: torch.Tensor) -> torch.Tensor:
         """Apply the radial-tangential distortion to ideal pixels (..., 2)."""
-        d = _distort_normalized(self.normalized_coords(pixels), self.dist)
-        return to_cartesian((self.K @ to_homogeneous(d)[..., None])[..., 0])
+        d = to_homogeneous(_distort_normalized(self.normalized_coords(pixels), self.dist))
+        return to_cartesian((bmat(self.K, d) @ d[..., None])[..., 0])
 
     def undistort_points(self, pixels: torch.Tensor, iters: int = 8) -> torch.Tensor:
         """Invert the distortion by fixed-point iteration."""
@@ -59,7 +62,8 @@ class Camera(NamedTuple):
         n = n_obs
         for _ in range(iters):
             n = n + (n_obs - _distort_normalized(n, self.dist))
-        return to_cartesian((self.K @ to_homogeneous(n)[..., None])[..., 0])
+        n = to_homogeneous(n)
+        return to_cartesian((bmat(self.K, n) @ n[..., None])[..., 0])
 
 
 def _distort_normalized(n: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
@@ -74,10 +78,14 @@ def _distort_normalized(n: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
 
 
 def project(P: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Apply a (3, 4) projection matrix to (..., 3) points -> (..., 2) pixels."""
-    return to_cartesian((P @ to_homogeneous(points)[..., None])[..., 0])
+    """Apply a (3, 4) or per-lane (B, 3, 4) projection matrix to (..., 3)
+    points -> (..., 2) pixels."""
+    h = to_homogeneous(points)
+    return to_cartesian((bmat(P, h) @ h[..., None])[..., 0])
 
 
 def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Apply a (4, 4) rigid transform to (..., 3) points -> (..., 3)."""
-    return (T[..., :3, :3] @ points[..., None])[..., 0] + T[..., :3, 3]
+    """Apply a (4, 4) or per-lane (B, 4, 4) rigid transform to (..., 3)
+    points -> (..., 3)."""
+    return (bmat(T[..., :3, :3], points) @ points[..., None]
+            + bmat(T[..., :3, 3:4], points))[..., 0]

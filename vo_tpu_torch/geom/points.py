@@ -11,6 +11,22 @@ import math
 import torch
 
 
+def lift(M: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Insert singleton axes before the last two of a per-lane matrix
+    (*lead, r, c) until it has `ndim` dims, so that it broadcasts against
+    per-point or per-hypothesis operands (*lead, *mid, ...). A plain 2-D
+    matrix (no lane axis) broadcasts as it is and comes back unchanged."""
+    if M.ndim == 2 or M.ndim >= ndim:
+        return M
+    return M.reshape(M.shape[:-2] + (1,) * (ndim - M.ndim) + M.shape[-2:])
+
+
+def bmat(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`lift` a per-lane matrix against vectors x (*lead, *mid, d): the result
+    multiplies `x[..., None]`."""
+    return lift(M, x.ndim + 1)
+
+
 def to_homogeneous(points: torch.Tensor) -> torch.Tensor:
     """Append a 1 to the last axis: (..., D) -> (..., D+1)."""
     return torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)

@@ -11,6 +11,10 @@ hook for landmark-sharded BA waits for the distributed port).
 
 Pose convention: window poses are w_T_c; increments are left-multiplied
 se(3) twists on c_T_w.
+
+Every field of a window may carry a leading lane axis (B, ...) with K
+(B, 3, 3): each lane is then its own window — its own gauge keyframe, scale
+renormalization and accept veto.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from vo_tpu_torch.geom.lie import pose_inverse, se3_exp
 from vo_tpu_torch.ops.linalg import spd_solve_blocked
+from vo_tpu_torch.ops.ransac import pick, where_lane
 
 # Gauge fixing: diagonal added to the first keyframe's camera block.
 _GAUGE = 1e8
@@ -37,7 +42,7 @@ class BAWindow(NamedTuple):
 
     @property
     def window_size(self) -> int:
-        return self.kf_pose.shape[0]
+        return self.kf_pose.shape[-2]
 
 
 def empty_window(num_keyframes: int, capacity: int, device=None) -> BAWindow:
@@ -54,51 +59,55 @@ def empty_window(num_keyframes: int, capacity: int, device=None) -> BAWindow:
 
 
 def where_window(cond: torch.Tensor, a: BAWindow, b: BAWindow) -> BAWindow:
-    """Field-wise torch.where(cond, a, b) for a scalar condition."""
-    return BAWindow(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+    """Field-wise torch.where(cond, a, b) for a scalar condition, or one
+    condition per lane (B,) against windows with a lane axis (`b` may be an
+    unbatched window shared by all lanes)."""
+    return BAWindow(*(where_lane(cond, x, y) for x, y in zip(a, b)))
 
 
 def push_keyframe(
     window: BAWindow,
-    pose: torch.Tensor,  # (4, 4) w_T_c of the new keyframe
-    slot_xy: torch.Tensor,  # (L, 2)
-    slot_landmark: torch.Tensor,  # (L, 3)
-    slot_uid: torch.Tensor,  # (L,) int32
-    slot_triangulated: torch.Tensor,  # (L,) bool
+    pose: torch.Tensor,  # (..., 4, 4) w_T_c of the new keyframe
+    slot_xy: torch.Tensor,  # (..., L, 2)
+    slot_landmark: torch.Tensor,  # (..., L, 3)
+    slot_uid: torch.Tensor,  # (..., L) int32
+    slot_triangulated: torch.Tensor,  # (..., L) bool
 ) -> BAWindow:
     """Shift the window left and append the current frame as the newest
     keyframe; observations of recycled slots (uid changed) are dropped."""
     same = window.lm_uid == slot_uid
-    obs_uv = torch.where(same[:, None, None], window.obs_uv, 0.0)
-    obs_mask = window.obs_mask & same[:, None]
-    kf_pose = torch.cat([window.kf_pose[1:], pose.reshape(1, 16)])
-    kf_valid = torch.cat([window.kf_valid[1:], torch.ones_like(window.kf_valid[:1])])
+    tri = slot_triangulated[..., None]
+    obs_uv = torch.where(same[..., None, None], window.obs_uv, 0.0)
+    obs_mask = window.obs_mask & same[..., None]
+    kf_pose = torch.cat(
+        [window.kf_pose[..., 1:, :], pose.reshape(pose.shape[:-2] + (1, 16))], dim=-2)
+    kf_valid = torch.cat(
+        [window.kf_valid[..., 1:], torch.ones_like(window.kf_valid[..., :1])], dim=-1)
     obs_uv = torch.cat(
-        [obs_uv[:, 1:], torch.where(slot_triangulated[:, None], slot_xy, 0.0)[:, None]],
-        dim=1,
-    )
-    obs_mask = torch.cat([obs_mask[:, 1:], slot_triangulated[:, None]], dim=1)
+        [obs_uv[..., 1:, :], torch.where(tri, slot_xy, 0.0)[..., None, :]], dim=-2)
+    obs_mask = torch.cat([obs_mask[..., 1:], tri], dim=-1)
     return BAWindow(
         kf_pose=kf_pose,
         kf_valid=kf_valid,
         obs_uv=obs_uv,
         obs_mask=obs_mask,
-        landmark=torch.where(slot_triangulated[:, None], slot_landmark, window.landmark),
+        landmark=torch.where(tri, slot_landmark, window.landmark),
         lm_uid=slot_uid,
-        lm_valid=slot_triangulated & (obs_mask.sum(dim=1) >= 2),
+        lm_valid=slot_triangulated & (obs_mask.sum(dim=-1) >= 2),
     )
 
 
 def _residuals_jacobians(kf_pose_flat, landmark, obs_uv, K):
-    """r (L, W, 2), Jc (L, W, 2, 6), Jx (L, W, 2, 3), depth_ok (L, W)."""
-    T_cw = pose_inverse(kf_pose_flat.reshape(-1, 4, 4))  # (W, 4, 4)
-    R = T_cw[:, :3, :3]
-    t = T_cw[:, :3, 3]
-    xc = torch.einsum("wij,lj->lwi", R, landmark) + t[None]
+    """r (..., L, W, 2), Jc (..., L, W, 2, 6), Jx (..., L, W, 2, 3),
+    depth_ok (..., L, W)."""
+    T_cw = pose_inverse(kf_pose_flat.reshape(kf_pose_flat.shape[:-1] + (4, 4)))
+    R = T_cw[..., :3, :3]  # (..., W, 3, 3)
+    t = T_cw[..., :3, 3]
+    xc = torch.einsum("...wij,...lj->...lwi", R, landmark) + t[..., None, :, :]
     x, y, z = xc[..., 0], xc[..., 1], xc[..., 2]
     depth_ok = z > 1e-3
     zs = torch.where(depth_ok, z, 1.0)
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    fx, fy, cx, cy = (K[..., i, j, None, None] for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
     u = fx * x / zs + cx
     v = fy * y / zs + cy
     r = torch.stack([u, v], dim=-1) - obs_uv
@@ -122,7 +131,7 @@ def _residuals_jacobians(kf_pose_flat, landmark, obs_uv, K):
         dim=-2,
     )  # [x_c]x
     Jc = torch.cat([Jpi, -Jpi @ hat], dim=-1)
-    Jx = torch.einsum("lwij,wjk->lwik", Jpi, R)
+    Jx = torch.einsum("...lwij,...wjk->...lwik", Jpi, R)
     return r, Jc, Jx, depth_ok
 
 
@@ -150,8 +159,8 @@ def _inv3(M: torch.Tensor) -> torch.Tensor:
 
 
 def _obs_mask(window: BAWindow, depth_ok: torch.Tensor) -> torch.Tensor:
-    return (window.obs_mask & depth_ok & window.lm_valid[:, None]
-            & window.kf_valid[None, :])
+    return (window.obs_mask & depth_ok & window.lm_valid[..., :, None]
+            & window.kf_valid[..., None, :])
 
 
 def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float):
@@ -166,50 +175,59 @@ def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float)
     rn = torch.linalg.vector_norm(r, dim=-1)
     wgt = torch.where(rn > huber_px, huber_px / torch.clamp(rn, min=1e-9), 1.0)
     m = (mask * wgt)[..., None, None]
-    err = torch.where(mask, rn, 0.0).sum() / torch.clamp(mask.sum(), min=1)
+    err = _masked_mean(rn, mask)
 
     Jc_m = Jc * m
-    U = torch.einsum("lwia,lwib->wab", Jc_m, Jc)  # (W, 6, 6)
-    bc = torch.einsum("lwia,lwi->wa", Jc_m, r)  # (W, 6)
+    U = torch.einsum("...lwia,...lwib->...wab", Jc_m, Jc)  # (..., W, 6, 6)
+    bc = torch.einsum("...lwia,...lwi->...wa", Jc_m, r)  # (..., W, 6)
     Jx_m = Jx * m
-    V = torch.einsum("lwia,lwib->lab", Jx_m, Jx)  # (L, 3, 3)
-    bx = torch.einsum("lwia,lwi->la", Jx_m, r)  # (L, 3)
-    Wc = torch.einsum("lwia,lwib->lwab", Jc_m, Jx)  # (L, W, 6, 3)
+    V = torch.einsum("...lwia,...lwib->...lab", Jx_m, Jx)  # (..., L, 3, 3)
+    bx = torch.einsum("...lwia,...lwi->...la", Jx_m, r)  # (..., L, 3)
+    Wc = torch.einsum("...lwia,...lwib->...lwab", Jc_m, Jx)  # (..., L, W, 6, 3)
 
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    V = V + damping * eye3[None]
-    Vinv = _inv3(V) * window.lm_valid[:, None, None]
+    V = V + damping * eye3
+    Vinv = _inv3(V) * window.lm_valid[..., None, None]
 
-    # Schur complement S = U - sum_l Wc V^-1 Wc^T  (W, W, 6, 6).
-    WVi = torch.einsum("lwab,lbc->lwac", Wc, Vinv)
-    S = -torch.einsum("lwac,lvbc->wvab", WVi, Wc)
+    # Schur complement S = U - sum_l Wc V^-1 Wc^T  (..., W, W, 6, 6).
+    WVi = torch.einsum("...lwab,...lbc->...lwac", Wc, Vinv)
+    S = -torch.einsum("...lwac,...lvbc->...wvab", WVi, Wc)
     diag = torch.arange(W, device=dev)
-    S[diag, diag] += U + damping * eye6[None]
-    b_red = bc - torch.einsum("lwac,lc->wa", WVi, bx)
+    S[..., diag, diag, :, :] += U + damping * eye6
+    # Written as products and sums, not einsum: a matrix-vector einsum picks
+    # its kernel by the batch shape, and a lane must round as a single run.
+    b_red = bc - (WVi * bx[..., :, None, None, :]).sum(dim=-1).sum(dim=-3)
 
-    # Gauge: freeze the oldest valid keyframe; dead keyframes get identity
-    # blocks so the solve stays well-posed.
-    first = torch.argmax(window.kf_valid.to(torch.int32))
-    S[first, first] += _GAUGE * eye6
+    # Gauge: freeze the oldest valid keyframe (each lane's own); dead
+    # keyframes get identity blocks so the solve stays well-posed.
+    first = torch.argmax(window.kf_valid.to(torch.int32), dim=-1, keepdim=True)
+    is_first = diag == first  # (..., W)
+    S[..., diag, diag, :, :] += is_first[..., None, None] * _GAUGE * eye6
     dead = ~window.kf_valid
-    S[diag, diag] += dead[:, None, None] * _GAUGE * eye6[None]
+    S[..., diag, diag, :, :] += dead[..., None, None] * _GAUGE * eye6
 
     delta_c = spd_solve_blocked(S, -b_red)
     # A degenerate window (floored Cholesky pivot) yields a no-op step.
-    solve_ok = torch.isfinite(delta_c).all()
+    solve_ok = torch.isfinite(delta_c).flatten(-2).all(dim=-1)[..., None, None]
     delta_c = torch.where(solve_ok, delta_c, 0.0)
-    rhs = -bx - torch.einsum("lwab,wa->lb", Wc, delta_c)
-    delta_x = torch.einsum("lab,lb->la", Vinv, rhs)
+    rhs = -bx - (Wc * delta_c[..., None, :, :, None]).sum(dim=(-3, -2))
+    delta_x = torch.einsum("...lab,...lb->...la", Vinv, rhs)
     delta_x = torch.where(
         solve_ok & torch.isfinite(delta_x).all(dim=-1, keepdim=True), delta_x, 0.0
     )
 
-    delta_c = torch.where(window.kf_valid[:, None], delta_c, 0.0)
-    T_cw = pose_inverse(window.kf_pose.reshape(-1, 4, 4))
-    kf_pose = pose_inverse(se3_exp(delta_c) @ T_cw).reshape(W, 16)
-    landmark = window.landmark + torch.where(window.lm_valid[:, None], delta_x, 0.0)
+    delta_c = torch.where(window.kf_valid[..., None], delta_c, 0.0)
+    T_cw = pose_inverse(window.kf_pose.reshape(window.kf_pose.shape[:-1] + (4, 4)))
+    kf_pose = pose_inverse(se3_exp(delta_c) @ T_cw).reshape(window.kf_pose.shape)
+    landmark = window.landmark + torch.where(window.lm_valid[..., None], delta_x, 0.0)
     return kf_pose, landmark, err
+
+
+def _masked_mean(rn: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of rn (..., L, W) over the masked observations of each window."""
+    total = torch.where(mask, rn, 0.0).sum(dim=(-2, -1))
+    return total / torch.clamp(mask.sum(dim=(-2, -1)), min=1)
 
 
 def _mean_reproj_err(window: BAWindow, K: torch.Tensor) -> torch.Tensor:
@@ -218,15 +236,14 @@ def _mean_reproj_err(window: BAWindow, K: torch.Tensor) -> torch.Tensor:
         window.kf_pose, window.landmark, window.obs_uv, K
     )
     mask = _obs_mask(window, depth_ok)
-    rn = torch.linalg.vector_norm(r, dim=-1)
-    return torch.where(mask, rn, 0.0).sum() / torch.clamp(mask.sum(), min=1)
+    return _masked_mean(torch.linalg.vector_norm(r, dim=-1), mask)
 
 
 def _two_oldest_valid(kf_valid: torch.Tensor):
-    idx = torch.arange(kf_valid.shape[0], device=kf_valid.device)
-    first = torch.argmax(kf_valid.to(torch.int32))
-    second = torch.argmax((kf_valid & (idx > first)).to(torch.int32))
-    has2 = (kf_valid.sum() >= 2) & (second > first)
+    idx = torch.arange(kf_valid.shape[-1], device=kf_valid.device)
+    first = torch.argmax(kf_valid.to(torch.int32), dim=-1)
+    second = torch.argmax((kf_valid & (idx > first[..., None])).to(torch.int32), dim=-1)
+    has2 = (kf_valid.sum(dim=-1) >= 2) & (second > first)
     return first, second, has2
 
 
@@ -238,18 +255,27 @@ def ba_refine(
     huber_px: float = 2.0,
     fix_scale: bool = True,
 ) -> tuple[BAWindow, torch.Tensor]:
-    """Run `iters` damped GN steps. Returns (refined window, (iters,) mean
-    reprojection error trace — err[i] is BEFORE step i).
+    """Run `iters` damped GN steps. Returns (refined window, (..., iters)
+    mean reprojection error trace — err[i] is BEFORE step i).
 
     With `fix_scale` the window is similarity-renormalized so the baseline
     between the two oldest keyframes is preserved. The refinement is
     accepted only if the error did not grow (>2%) and every pose and valid
-    landmark is finite; otherwise the input window comes back unchanged.
+    landmark is finite; otherwise the input window comes back unchanged —
+    lane by lane, when the window carries a lane axis.
     """
+    if window.kf_pose.ndim == 2:
+        # One window is a batch of one lane: the same reduction shapes as a
+        # lane of a larger batch, so the two round alike (the 1e8 gauge
+        # amplifies any difference in summation order).
+        out, errs = ba_refine(BAWindow(*(f[None] for f in window)), K.reshape(1, 3, 3),
+                              iters, damping, huber_px, fix_scale)
+        return BAWindow(*(f[0] for f in out)), errs[0]
+    pose_shape = window.kf_pose.shape[:-1] + (4, 4)
     err0 = _mean_reproj_err(window, K)
-    centers0 = window.kf_pose.reshape(-1, 4, 4)[:, :3, 3]
+    centers0 = window.kf_pose.reshape(pose_shape)[..., :3, 3]
     i0, i1, has2 = _two_oldest_valid(window.kf_valid)
-    d_before = torch.linalg.vector_norm(centers0[i1] - centers0[i0])
+    d_before = torch.linalg.vector_norm(pick(centers0, i1) - pick(centers0, i0), dim=-1)
 
     refined = window
     errs = []
@@ -259,20 +285,21 @@ def ba_refine(
         errs.append(err)
 
     if fix_scale:
-        poses = refined.kf_pose.reshape(-1, 4, 4).clone()
-        centers = poses[:, :3, 3]
-        anchor = centers[i0]
-        d_after = torch.linalg.vector_norm(centers[i1] - anchor)
-        s = torch.where(has2 & (d_after > 1e-9), d_before / d_after, 1.0)
-        poses[:, :3, 3] = anchor + s * (centers - anchor)
+        poses = refined.kf_pose.reshape(pose_shape).clone()
+        centers = poses[..., :3, 3]
+        anchor = pick(centers, i0)
+        d_after = torch.linalg.vector_norm(pick(centers, i1) - anchor, dim=-1)
+        s = torch.where(has2 & (d_after > 1e-9), d_before / d_after, 1.0)[..., None, None]
+        anchor = anchor[..., None, :]
+        poses[..., :3, 3] = anchor + s * (centers - anchor)
         refined = refined._replace(
-            kf_pose=poses.reshape(-1, 16),
+            kf_pose=poses.reshape(window.kf_pose.shape),
             landmark=anchor + s * (refined.landmark - anchor),
         )
 
     err1 = _mean_reproj_err(refined, K)
-    bad = (~torch.isfinite(refined.kf_pose)).sum() + (
-        refined.lm_valid[:, None] & ~torch.isfinite(refined.landmark)
-    ).sum()
+    bad = (~torch.isfinite(refined.kf_pose)).sum(dim=(-2, -1)) + (
+        refined.lm_valid[..., None] & ~torch.isfinite(refined.landmark)
+    ).sum(dim=(-2, -1))
     accept = torch.isfinite(err1) & (err1 <= err0 * 1.02) & (bad == 0)
-    return where_window(accept, refined, window), torch.stack(errs)
+    return where_window(accept, refined, window), torch.stack(errs, dim=-1)

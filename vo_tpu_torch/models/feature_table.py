@@ -11,6 +11,9 @@ lifecycle:
 
 All updates are masked `where`s and out-of-place scatters, so slot identity
 IS track identity.
+
+Every field may carry a leading lane axis (B, K, ...): the updates then act
+per lane (free-slot order, detection ranks and uids are each lane's own).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ class FeatureTable(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.xy.shape[0]
+        return self.xy.shape[-2]
 
 
 def empty_table(capacity: int, desc_dim: int = 1, device=None) -> FeatureTable:
@@ -65,32 +68,39 @@ def restart_tracks(
 ) -> FeatureTable:
     """Reset masked slots to fresh unmatched tracks starting at their current
     position and the current pose (ref state.py:162-172)."""
-    m = mask[:, None]
+    m = mask[..., None]
     return table._replace(
         state=torch.where(mask, STATE_UNMATCHED, table.state).to(torch.int32),
         track_xy=torch.where(m, table.xy, table.track_xy),
-        track_pose=torch.where(m, pose_flat[None, :], table.track_pose),
+        track_pose=torch.where(m, pose_flat[..., None, :], table.track_pose),
     )
 
 
 def _scatter_drop(dst: torch.Tensor, index: torch.Tensor, src) -> torch.Tensor:
-    """dst.at[index].set(src, mode="drop") for index in [0, len(dst)]: row
-    len(dst) is a scratch row that swallows the dropped writes."""
-    ext = torch.cat([dst, dst[:1]], dim=0)
-    ext[index] = src if torch.is_tensor(src) else torch.as_tensor(
-        src, dtype=dst.dtype, device=dst.device)
-    return ext[:-1]
+    """dst.at[index].set(src, mode="drop") along the slot axis, for index
+    (..., C) in [0, K] against dst (..., K, *tail): row K is a scratch row
+    that swallows the dropped writes. The kept targets are distinct."""
+    dim = index.ndim - 1
+    k = dst.shape[dim]
+    tail = dst.shape[dim + 1:]
+    ext = torch.cat([dst, dst.narrow(dim, 0, 1)], dim=dim)
+    idx = index.reshape(index.shape + (1,) * len(tail)).expand(index.shape + tail)
+    if torch.is_tensor(src):
+        ext = ext.scatter(dim, idx, src.to(dst.dtype).expand(idx.shape))
+    else:
+        ext = ext.scatter(dim, idx, src)
+    return ext.narrow(dim, 0, k)
 
 
 def fill_free_slots(
     table: FeatureTable,
-    det_xy: torch.Tensor,  # (C, 2) candidate detections (strongest first)
-    det_score: torch.Tensor,  # (C,)
-    det_ok: torch.Tensor,  # (C,) bool eligible (valid + far from live tracks)
-    pose_flat: torch.Tensor,  # (16,) current w_T_c
-    next_uid: torch.Tensor,  # () int32
-    det_desc: torch.Tensor | None = None,  # (C, D)
-    det_sigma: torch.Tensor | None = None,  # (C,)
+    det_xy: torch.Tensor,  # (..., C, 2) candidate detections (strongest first)
+    det_score: torch.Tensor,  # (..., C)
+    det_ok: torch.Tensor,  # (..., C) bool eligible (valid + far from live tracks)
+    pose_flat: torch.Tensor,  # (..., 16) current w_T_c
+    next_uid: torch.Tensor,  # (...) int32
+    det_desc: torch.Tensor | None = None,  # (..., C, D)
+    det_sigma: torch.Tensor | None = None,  # (..., C)
 ) -> tuple[FeatureTable, torch.Tensor]:
     """Scatter eligible detections into empty slots (r-th eligible detection
     -> r-th free slot, free slots in index order). Returns (table, new
@@ -98,12 +108,12 @@ def fill_free_slots(
     k = table.capacity
     free = table.state == STATE_EMPTY
     free_order = torch.argsort(torch.where(free, 0, 1), stable=True)  # free first
-    n_free = free.sum()
-    det_rank = torch.cumsum(det_ok.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    n_free = free.sum(dim=-1, keepdim=True)
+    det_rank = torch.cumsum(det_ok.to(torch.int32), dim=-1, dtype=torch.int32) - 1
     use = det_ok & (det_rank < n_free)
-    target = free_order[torch.clamp(det_rank, 0, k - 1).long()]
+    target = torch.take_along_dim(free_order, torch.clamp(det_rank, 0, k - 1).long(), dim=-1)
     safe_target = torch.where(use, target, k)  # k = dropped
-    new_uid = (next_uid + det_rank).to(torch.int32)
+    new_uid = (next_uid[..., None] + det_rank).to(torch.int32)
 
     state = _scatter_drop(table.state, safe_target, STATE_UNMATCHED)
     desc = table.desc
@@ -119,18 +129,26 @@ def fill_free_slots(
         state=state,
         track_xy=_scatter_drop(table.track_xy, safe_target, det_xy),
         track_pose=_scatter_drop(
-            table.track_pose, safe_target, pose_flat.expand(det_xy.shape[0], 16)),
+            table.track_pose, safe_target,
+            pose_flat[..., None, :].expand(det_xy.shape[:-1] + (16,))),
         uid=_scatter_drop(table.uid, safe_target, new_uid),
         desc=desc,
         sigma=sigma,
         miss=_scatter_drop(table.miss, safe_target, 0),
     )
-    return new_table, (next_uid + use.sum()).to(torch.int32)
+    return new_table, (next_uid + use.sum(dim=-1)).to(torch.int32)
 
 
 def debug_validate(table: FeatureTable) -> list[str]:
     """Host-side invariant checks (the reference's runtime asserts as a
-    validator). Returns a list of violation messages (empty = valid)."""
+    validator). Returns a list of violation messages (empty = valid); a
+    batched table is checked lane by lane, messages prefixed by the lane."""
+    if table.state.ndim > 1:
+        return [
+            f"lane {b}: {msg}"
+            for b in range(table.state.shape[0])
+            for msg in debug_validate(FeatureTable(*(f[b] for f in table)))
+        ]
     xy = table.xy.cpu().numpy()
     lm = table.landmark.cpu().numpy()
     st = table.state.cpu().numpy()

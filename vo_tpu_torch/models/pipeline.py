@@ -7,10 +7,22 @@ fails, keyframe push + BA) are host `if`s on a synchronized flag here;
 everything else is static-shape masked tensor work, as in the reference.
 `vo_rollout` is a Python loop over `vo_step` that stacks the StepOutputs.
 
+Lanes: `vo_step` also takes a BATCHED state — every leaf with a leading lane
+axis (B, ...), images (B, H, W), K (B, 3, 3) — and steps B independent
+sequences in lockstep with the same tensor code (parallel/multiseq.py stacks
+and rolls such states). Lane b of the result is what the unbatched step
+gives on lane b. As under the reference's `vmap`, each host branch becomes a
+select: the branch runs for all lanes when ANY lane takes it, and each
+lane's own predicate picks its result.
+
 Randomness: `bootstrap` takes a sampler (ops/ransac.py: a torch.Generator,
 or a callable replaying indices drawn elsewhere) and keeps it as
 `state.rng`; each RANSAC of a step draws from it in order (PnP, then the
-E-matrix recovery when PnP failed).
+E-matrix recovery when PnP failed). A batched state carries a sequence of B
+samplers, one per lane. A lane draws from its own sampler only, and draws
+for the recovery only on frames where its OWN PnP failed — so lane b of a
+batch draws exactly what a single run of that lane draws, whatever happens
+to its neighbours.
 
 Only the `tracker="klt"` front-end is ported; "harris" and "sift" raise
 NotImplementedError (ROADMAP Queue 1, item 11).
@@ -25,6 +37,7 @@ import torch
 
 from vo_tpu_torch.geom.camera import Camera
 from vo_tpu_torch.geom.lie import pose_inverse
+from vo_tpu_torch.geom.points import bmat, lift
 from vo_tpu_torch.models.ba import (
     BAWindow,
     ba_refine,
@@ -51,19 +64,22 @@ from vo_tpu_torch.ops.harris import detect_keypoints
 from vo_tpu_torch.ops.image import build_pyramid
 from vo_tpu_torch.ops.klt import pyramidal_lk
 from vo_tpu_torch.ops.pnp import pnp_ransac
-from vo_tpu_torch.ops.ransac import Sampler
+from vo_tpu_torch.ops.ransac import IDLE, Samplers, is_lane_samplers, where_lane
 from vo_tpu_torch.ops.triangulate import reprojection_error, triangulate_dlt
 from vo_tpu_torch.utils.config import VOConfig
 
 
 class VOState(NamedTuple):
     table: FeatureTable
+    """Shapes are those of one sequence; a batched state carries a leading
+    lane axis (B, ...) on every tensor leaf and B samplers."""
+
     pose: torch.Tensor  # (4, 4) w_T_c of the current frame
     prev_pose: torch.Tensor  # (4, 4) w_T_c of the previous frame
     pyramid: tuple  # prev-frame Gaussian pyramid (tuple of tensors)
     frame_idx: torch.Tensor  # () int32
     next_uid: torch.Tensor  # () int32
-    rng: Sampler  # RANSAC sampler (torch.Generator or replaying callable)
+    rng: Samplers  # RANSAC sampler (torch.Generator or replaying callable), or B of them
     window: BAWindow  # sliding keyframe window for on-device BA
     last_kf_idx: torch.Tensor  # () int32 frame index of the newest keyframe
     kf_adaptive: torch.Tensor  # () bool keyframe policy (False = fixed cadence)
@@ -79,6 +95,30 @@ class StepOutput(NamedTuple):
     num_pnp_inliers: torch.Tensor
     num_new_landmarks: torch.Tensor
     frozen: torch.Tensor  # () bool — every pose tier was non-finite
+
+
+def map_state(fn, *states: VOState, rng: Samplers) -> VOState:
+    """Apply fn to the corresponding tensor leaves of VOStates (table and
+    window fields, pyramid levels, poses and scalars); `rng` is set as given."""
+    first = states[0]
+
+    def leaf(get):
+        return fn(*(get(s) for s in states))
+
+    return VOState(
+        table=FeatureTable(*(
+            leaf(lambda s, i=i: s.table[i]) for i in range(len(first.table)))),
+        window=BAWindow(*(
+            leaf(lambda s, i=i: s.window[i]) for i in range(len(first.window)))),
+        pyramid=tuple(
+            leaf(lambda s, i=i: s.pyramid[i]) for i in range(len(first.pyramid))),
+        rng=rng,
+        **{
+            name: leaf(lambda s, name=name: getattr(s, name))
+            for name in ("pose", "prev_pose", "frame_idx", "next_uid",
+                         "last_kf_idx", "kf_adaptive", "last_speed")
+        },
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +172,15 @@ def _undistort(xy: torch.Tensor, K: torch.Tensor, cfg: VOConfig) -> torch.Tensor
 def _rays_world(pose: torch.Tensor, Kinv: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Unit bearing rays of pixels rotated into the world frame."""
     h = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
-    r_cam = (Kinv @ h[..., None])[..., 0]
-    r_w = (pose[..., :3, :3] @ r_cam[..., None])[..., 0]
+    r_cam = (bmat(Kinv, h) @ h[..., None])[..., 0]
+    r_w = (bmat(pose[..., :3, :3], r_cam) @ r_cam[..., None])[..., 0]
     return r_w / torch.clamp(torch.linalg.vector_norm(r_w, dim=-1, keepdim=True), min=1e-20)
 
 
 def _proj_matrix(pose: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """P = K [R|t] with [R|t] = inv(pose), batched over leading dims."""
-    return K @ pose_inverse(pose)[..., :3, :4]
+    """P = K [R|t] with [R|t] = inv(pose), batched over leading dims (one
+    pose per lane, or one per track of each lane)."""
+    return lift(K, pose.ndim) @ pose_inverse(pose)[..., :3, :4]
 
 
 def _lk(prev_pyr, next_pyr, xy, cfg: VOConfig, init_flow=None):
@@ -165,10 +206,12 @@ def bootstrap(
     image1: torch.Tensor,
     K: torch.Tensor,
     cfg: VOConfig,
-    rng: Sampler,
+    rng: Samplers,
 ) -> tuple[VOState, StepOutput]:
-    """Initialize the map from two (non-adjacent) frames. The world frame is
-    camera 0; the bootstrap baseline is fixed to |t| = 1."""
+    """Initialize the map from two (non-adjacent) frames of ONE sequence.
+    The world frame is camera 0; the bootstrap baseline is fixed to |t| = 1.
+    The lanes of a multi-sequence run are bootstrapped one by one and
+    stacked (parallel/multiseq.py `stack_states`)."""
     _require_klt(cfg)
     dev = image0.device
     kcap = cfg.capacity
@@ -264,10 +307,33 @@ def vo_rollout(
     return state, StepOutput(*(torch.stack(f) for f in zip(*outs)))
 
 
+def _depth(T_cw: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Camera-frame depth of points X (..., N, 3) under one world->camera
+    transform per lane, T_cw (..., 4, 4)."""
+    return (T_cw[..., None, 2, :3] * X).sum(-1) + T_cw[..., None, 2, 3]
+
+
+def _mat_points(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """(M @ X^T)^T for one 3x3 per lane against points (..., N, 3)."""
+    return (M @ X.transpose(-1, -2)).transpose(-1, -2)
+
+
 def vo_step(
     state: VOState, image: torch.Tensor, K: torch.Tensor, cfg: VOConfig
 ) -> tuple[VOState, StepOutput]:
     _require_klt(cfg)
+    if not is_lane_samplers(state.rng):
+        # One sequence is a batch of one lane: the same kernels and the same
+        # reduction shapes as lane b of a larger batch, so a single run and
+        # its lane in a batched run round alike.
+        batch_of_one = map_state(lambda x: x[None], state, rng=[state.rng])
+        new, out = vo_step(batch_of_one, image[None], K.reshape(1, 3, 3), cfg)
+        return (map_state(lambda x: x[0], new, rng=state.rng),
+                StepOutput(*(f[0] for f in out)))
+    if image.ndim != 3 or len(state.rng) != image.shape[0]:
+        raise ValueError(
+            f"a state of {len(state.rng)} lanes needs images (B, H, W), got "
+            f"{tuple(image.shape)}")
     tcfg = cfg.triangulation
     table = state.table
     Kinv = torch.linalg.inv(K)
@@ -285,15 +351,16 @@ def vo_step(
         T_pp = pose_inverse(pose_pred) @ state.pose  # prev cam -> pred cam
         xy_ideal = _undistort(table.xy, K, cfg)
         h = torch.cat([xy_ideal, torch.ones_like(table.xy[..., :1])], dim=-1)
-        r = (T_pp[:3, :3] @ (Kinv @ h.T)).T
-        uv_rot = (K @ r.T).T
-        uv_rot = uv_rot[:, :2] / torch.where(uv_rot[:, 2:].abs() > 1e-6, uv_rot[:, 2:], 1.0)
+        r = _mat_points(T_pp[..., :3, :3], _mat_points(Kinv, h))
+        uv_rot = _mat_points(K, r)
+        uv_rot = uv_rot[..., :2] / torch.where(
+            uv_rot[..., 2:].abs() > 1e-6, uv_rot[..., 2:], 1.0)
         T_cp = pose_inverse(pose_pred)
-        Xc = (T_cp[:3, :3] @ table.landmark.T).T + T_cp[:3, 3]
-        uv_full = (K @ Xc.T).T
-        uv_full = uv_full[:, :2] / torch.where(Xc[:, 2:] > 0.2, Xc[:, 2:], 1.0)
-        use_full = (table.state == STATE_TRIANGULATED) & (Xc[:, 2] > 0.2)
-        guess = torch.where(use_full[:, None], uv_full, uv_rot)
+        Xc = _mat_points(T_cp[..., :3, :3], table.landmark) + T_cp[..., None, :3, 3]
+        uv_full = _mat_points(K, Xc)
+        uv_full = uv_full[..., :2] / torch.where(Xc[..., 2:] > 0.2, Xc[..., 2:], 1.0)
+        use_full = (table.state == STATE_TRIANGULATED) & (Xc[..., 2] > 0.2)
+        guess = torch.where(use_full[..., None], uv_full, uv_rot)
         if any(cfg.dist):
             cam = Camera.create(K, dist=torch.tensor(cfg.dist, dtype=torch.float32,
                                                      device=K.device))
@@ -319,69 +386,72 @@ def vo_step(
         num_hypotheses=cfg.pnp.num_hypotheses,
         refine_iters=cfg.pnp.refine_iters,
     )
-    pose_ok = (pnp.num_inliers >= cfg.pnp.min_inliers) & torch.isfinite(pnp.T_cw).all()
+    pose_ok = (pnp.num_inliers >= cfg.pnp.min_inliers) & _all_finite(pnp.T_cw)
     pose_pnp = pose_inverse(pnp.T_cw)
     # Fallback tier 1: constant velocity, translation pinned to the last
     # validated speed.
-    t_cv = rel_cv[:3, 3]
-    n_cv = torch.linalg.vector_norm(t_cv)
-    t_pin = t_cv * (state.last_speed / torch.clamp(n_cv, min=1e-12))
+    t_cv = rel_cv[..., :3, 3]
+    n_cv = torch.linalg.vector_norm(t_cv, dim=-1, keepdim=True)
+    t_pin = t_cv * (state.last_speed[..., None] / torch.clamp(n_cv, min=1e-12))
     rel_pinned = rel_cv.clone()
-    rel_pinned[:3, 3] = torch.where(n_cv > 1e-12, t_pin, t_cv)
+    rel_pinned[..., :3, 3] = torch.where(n_cv > 1e-12, t_pin, t_cv)
     pose_cv = state.pose @ rel_pinned
     pose_fb = pose_cv
-    if cfg.recovery.enabled and not bool(pose_ok):
+    lost = (~pose_ok).reshape(-1).tolist() if cfg.recovery.enabled else [False]
+    if any(lost):
         # Fallback tier 2: visual relative pose from this frame's 2D-2D
         # tracks (8-point RANSAC -> E -> cheirality), scale pinned as above.
+        # It runs for all lanes when any lane lost its pose; only a lost
+        # lane draws from its sampler and only a lost lane takes the result.
+        rng = [r if lost_b else IDLE for r, lost_b in zip(state.rng, lost)]
         prev_xy_u = _undistort(state.table.xy, K, cfg)
         res = fundamental_ransac(
-            state.rng, prev_xy_u, xy_u, valid=tracked,
+            rng, prev_xy_u, xy_u, valid=tracked,
             inlier_threshold_px=cfg.recovery.inlier_threshold_px,
             num_hypotheses=cfg.recovery.num_hypotheses,
         )
         E = essential_from_fundamental(res.model, K, K)
         rp = relative_pose_from_essential(E, prev_xy_u, xy_u, K, K, weight=res.inliers)
         T21 = rp.T_21.clone()
-        T21[:3, 3] = rp.T_21[:3, 3] * state.last_speed
+        T21[..., :3, 3] = rp.T_21[..., :3, 3] * state.last_speed[..., None]
         pose_vis = state.pose @ pose_inverse(T21)
-        ok = (res.num_inliers >= cfg.recovery.min_inliers) & torch.isfinite(pose_vis).all()
-        pose_fb = torch.where(ok, pose_vis, pose_cv)
-    pose = torch.where(pose_ok, pose_pnp, pose_fb)
+        ok = (res.num_inliers >= cfg.recovery.min_inliers) & _all_finite(pose_vis)
+        pose_fb = where_lane(ok & ~pose_ok, pose_vis, pose_cv)
+    pose = where_lane(pose_ok, pose_pnp, pose_fb)
     # Last-resort fail-safe: hold the previous pose if every tier is
     # non-finite.
-    pose_finite = torch.isfinite(pose).all()
+    pose_finite = _all_finite(pose)
     frozen = ~pose_finite
-    pose = torch.where(pose_finite, pose, state.pose)
+    pose = where_lane(pose_finite, pose, state.pose)
     pose_ok = pose_ok & pose_finite
-    pose_flat = pose.reshape(16)
+    pose_flat = pose.reshape(pose.shape[:-2] + (16,))
     T_cw = pose_inverse(pose)
 
     # ---- 3. Outlier reset (state.py:162-172) ----
-    table = restart_tracks(table, tri & ~pnp.inliers & pose_ok, pose_flat)
+    table = restart_tracks(table, tri & ~pnp.inliers & pose_ok[..., None], pose_flat)
 
     # ---- 4. Cheirality cull of surviving landmarks (state.py:90-107) ----
     tri = table.state == STATE_TRIANGULATED
-    T_cw_prev = pose_inverse(state.pose)
-    z_now = (T_cw[2, :3] * table.landmark).sum(-1) + T_cw[2, 3]
-    z_prev = (T_cw_prev[2, :3] * table.landmark).sum(-1) + T_cw_prev[2, 3]
+    z_now = _depth(T_cw, table.landmark)
+    z_prev = _depth(pose_inverse(state.pose), table.landmark)
     behind = tri & ~((z_now > tcfg.min_depth) & (z_prev > tcfg.min_depth))
     table = restart_tracks(table, behind, pose_flat)
 
     # ---- 5. Bearing-angle candidate gate (state.py:135-160) ----
     cand_mask = (table.state == STATE_MATCHED) & fresh
-    track_pose = table.track_pose.reshape(-1, 4, 4)
+    track_pose = table.track_pose.reshape(table.track_pose.shape[:-1] + (4, 4))
     ray_start = _rays_world(track_pose, Kinv, track_xy_u)
     ray_now = _rays_world(pose, Kinv, xy_u)
     angle = torch.arccos(torch.clamp((ray_start * ray_now).sum(-1), -1.0, 1.0))
     candidates = cand_mask & (angle >= tcfg.bearing_threshold)
 
     # ---- 6. Triangulate candidates (triangulation.py:38-86) ----
-    P_start = _proj_matrix(track_pose, K)  # (K, 3, 4) per-track-start
-    P_now = _proj_matrix(pose, K)  # (3, 4)
+    P_start = _proj_matrix(track_pose, K)  # (..., K, 3, 4) per-track-start
+    P_now = _proj_matrix(pose, K)  # (..., 3, 4)
     X = triangulate_dlt(P_start, P_now, track_xy_u, xy_u)
     T_start = pose_inverse(track_pose)
-    z_start = (T_start[:, 2, :3] * X).sum(-1) + T_start[:, 2, 3]
-    z_new = (T_cw[2, :3] * X).sum(-1) + T_cw[2, 3]
+    z_start = (T_start[..., 2, :3] * X).sum(-1) + T_start[..., 2, 3]
+    z_new = _depth(T_cw, X)
     good_new = (
         candidates
         & torch.isfinite(X).all(-1)
@@ -392,16 +462,16 @@ def vo_step(
         & (reprojection_error(P_start, X, track_xy_u) < tcfg.max_reproj_px)
     )
     table = table._replace(
-        landmark=torch.where(good_new[:, None], X, table.landmark),
+        landmark=torch.where(good_new[..., None], X, table.landmark),
         state=torch.where(good_new, STATE_TRIANGULATED, table.state).to(torch.int32),
     )
 
     # ---- 7. Top-up detection into free slots (klt.py:98-116, 206-230) ----
     det = _detect_mode(image, cfg)
     live = table.state >= STATE_UNMATCHED
-    d2 = ((det.xy[:, None, :] - table.xy[None, :, :]) ** 2).sum(dim=-1)
-    d2 = torch.where(live[None, :], d2, float("inf"))
-    far = d2.min(dim=1).values > cfg.detector.min_dist_to_live**2
+    d2 = ((det.xy[..., :, None, :] - table.xy[..., None, :, :]) ** 2).sum(dim=-1)
+    d2 = torch.where(live[..., None, :], d2, float("inf"))
+    far = d2.min(dim=-1).values > cfg.detector.min_dist_to_live**2
     table, next_uid = fill_free_slots(
         table, det.xy, det.score, det.valid & far, pose_flat, state.next_uid,
         det_desc=det.desc, det_sigma=det.sigma,
@@ -422,29 +492,36 @@ def vo_step(
             _want_adaptive(window, table, pose, T_cw, new_frame_idx - state.last_kf_idx, cfg),
             new_frame_idx % cfg.ba.keyframe_every == 0,
         )
-        if bool(want_kf & pose_ok):
-            window = push_keyframe(
+        push = want_kf & pose_ok
+        if bool(push.any()):
+            # The push (and BA) runs for all lanes when any lane pushes;
+            # each lane keeps it only under its own predicate.
+            pushed = push_keyframe(
                 window, pose, xy_u, table.landmark, table.uid,
                 (table.state == STATE_TRIANGULATED) & fresh,
             )
+            landmark = table.landmark
             if cfg.ba.refine_in_step:
-                window, _ = ba_refine(
-                    window, K, iters=cfg.ba.iters,
+                pushed, _ = ba_refine(
+                    pushed, K, iters=cfg.ba.iters,
                     damping=cfg.ba.damping, huber_px=cfg.ba.huber_px,
                 )
                 match = (
-                    (window.lm_uid == table.uid)
-                    & window.lm_valid
+                    (pushed.lm_uid == table.uid)
+                    & pushed.lm_valid
                     & (table.state == STATE_TRIANGULATED)
+                    & push[..., None]
                 )
-                table = table._replace(
-                    landmark=torch.where(match[:, None], window.landmark, table.landmark)
-                )
-            pose = window.kf_pose[-1].reshape(4, 4)
-            last_kf_idx = new_frame_idx
+                landmark = torch.where(match[..., None], pushed.landmark, table.landmark)
+            table = table._replace(landmark=landmark)
+            window = where_window(push, pushed, window)
+            kf_pose = pushed.kf_pose[..., -1, :].reshape(pose.shape)
+            pose = where_lane(push, kf_pose, pose)
+            last_kf_idx = torch.where(push, new_frame_idx, last_kf_idx)
 
     # Validated speed for the next step's fallback pinning.
-    speed_now = torch.linalg.vector_norm((pose_inverse(state.pose) @ pose)[:3, 3])
+    speed_now = torch.linalg.vector_norm(
+        (pose_inverse(state.pose) @ pose)[..., :3, 3], dim=-1)
     last_speed = torch.where(pose_ok & torch.isfinite(speed_now), speed_now, state.last_speed)
 
     new_state = VOState(
@@ -463,14 +540,19 @@ def vo_step(
     out = StepOutput(
         pose=pose,
         pose_ok=pose_ok,
-        num_tracked=tracked.sum(),
-        num_triangulated=(table.state == STATE_TRIANGULATED).sum(),
-        num_candidates=candidates.sum(),
+        num_tracked=tracked.sum(dim=-1),
+        num_triangulated=(table.state == STATE_TRIANGULATED).sum(dim=-1),
+        num_candidates=candidates.sum(dim=-1),
         num_pnp_inliers=pnp.num_inliers,
-        num_new_landmarks=good_new.sum(),
+        num_new_landmarks=good_new.sum(dim=-1),
         frozen=frozen,
     )
     return new_state, out
+
+
+def _all_finite(T: torch.Tensor) -> torch.Tensor:
+    """Per-lane: every entry of the (..., 4, 4) matrix is finite."""
+    return torch.isfinite(T).flatten(-2).all(dim=-1)
 
 
 def _want_adaptive(window, table, pose, T_cw, gap, cfg: VOConfig) -> torch.Tensor:
@@ -479,15 +561,17 @@ def _want_adaptive(window, table, pose, T_cw, gap, cfg: VOConfig) -> torch.Tenso
     is significant or map overlap with it has decayed, within [min_gap,
     max_gap] frames — and never while stationary."""
     b = cfg.ba
-    last_pose = window.kf_pose[-1].reshape(4, 4)
+    last_pose = window.kf_pose[..., -1, :].reshape(pose.shape)
     tri_f = table.state == STATE_TRIANGULATED
-    n_tri = torch.clamp(tri_f.sum(), min=1)
-    z_tri = (T_cw[2, :3] * table.landmark).sum(-1) + T_cw[2, 3]
-    mean_depth = torch.clamp(torch.where(tri_f, z_tri, 0.0).sum() / n_tri, min=1e-3)
-    baseline = torch.linalg.vector_norm(pose[:3, 3] - last_pose[:3, 3])
-    cos_r = 0.5 * (torch.trace(last_pose[:3, :3].T @ pose[:3, :3]) - 1.0)
+    n_tri = torch.clamp(tri_f.sum(dim=-1), min=1)
+    z_tri = _depth(T_cw, table.landmark)
+    mean_depth = torch.clamp(torch.where(tri_f, z_tri, 0.0).sum(dim=-1) / n_tri, min=1e-3)
+    baseline = torch.linalg.vector_norm(pose[..., :3, 3] - last_pose[..., :3, 3], dim=-1)
+    rel_rot = last_pose[..., :3, :3].transpose(-1, -2) @ pose[..., :3, :3]
+    cos_r = 0.5 * (rel_rot.diagonal(dim1=-2, dim2=-1).sum(dim=-1) - 1.0)
     rot = torch.arccos(torch.clamp(cos_r, -1.0, 1.0))
-    covis = (tri_f & window.obs_mask[:, -1] & (window.lm_uid == table.uid)).sum() / n_tri
+    covis = (tri_f & window.obs_mask[..., -1]
+             & (window.lm_uid == table.uid)).sum(dim=-1) / n_tri
     moving = baseline / mean_depth >= 0.25 * b.min_baseline_ratio
     want = (gap >= b.min_gap) & (
         (baseline / mean_depth >= b.min_baseline_ratio)
@@ -495,7 +579,7 @@ def _want_adaptive(window, table, pose, T_cw, gap, cfg: VOConfig) -> torch.Tenso
         | (moving & (covis < b.min_covisibility))
         | (moving & (gap >= b.max_gap))
     )
-    return want | ~window.kf_valid[-1]
+    return want | ~window.kf_valid[..., -1]
 
 
 # ---------------------------------------------------------------------------
@@ -515,12 +599,19 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(arr.astype(np.float32), device=device)
 
 
-def state_from_numpy(state, device, rng: Sampler) -> VOState:
+def state_from_numpy(state, device, rng: Samplers) -> VOState:
     """Build a VOState from arrays: a mapping (or NamedTuple, e.g. a JAX
     `VOState`) with VOState's field names whose `table`/`window` are
     mappings or NamedTuples of arrays and `pyramid` a sequence of arrays.
     Floats become f32, integers int32 (the numpy -> torch boundary). The
-    JAX PRNG key has no counterpart: `rng` is the port's sampler."""
+    JAX PRNG key has no counterpart: `rng` is the port's sampler. A batched
+    state (every leaf with a leading B, as `jax.vmap` carries it) comes
+    across the same way, with `rng` a sequence of B samplers."""
+    if is_lane_samplers(rng):
+        rng = list(rng)
+        lanes = np.asarray(_fields(state)["frame_idx"]).shape
+        if lanes != (len(rng),):
+            raise ValueError(f"{len(rng)} samplers for a state with lane shape {lanes}")
     s = _fields(state)
     table = FeatureTable(**{k: _to_tensor(v, device) for k, v in _fields(s["table"]).items()})
     window = BAWindow(**{k: _to_tensor(v, device) for k, v in _fields(s["window"]).items()})

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "vo_corner_response_nms": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
     # (imgs, corners, out, B, H, W, K, size, stream)
     "vo_extract_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (stream) — an empty kernel, the launch-latency floor
+    "vo_empty_launch": (_P,),
 }
 
 

@@ -3,7 +3,9 @@ cheirality-voted relative pose — port of vo_tpu/ops/epipolar.py.
 
 eigh/svd sign conventions differ between LAPACK and cuSOLVER; every output
 here is invariant to them (F up to sign, the rank-2 and essential
-projections, the four-candidate set and its cheirality vote).
+projections, the four-candidate set and its cheirality vote) — also per
+lane, when the inputs carry a leading lane axis ((B, N, 2) points, (B, 3, 3)
+matrices, one sampler per lane).
 """
 
 from __future__ import annotations
@@ -12,9 +14,16 @@ from typing import NamedTuple
 
 import torch
 
-from vo_tpu_torch.geom.points import normalize_points, to_homogeneous
+from vo_tpu_torch.geom.points import lift, normalize_points, to_homogeneous
 from vo_tpu_torch.ops.linalg import eigh_finite, svd_finite
-from vo_tpu_torch.ops.ransac import RansacResult, Sampler, num_iterations, ransac
+from vo_tpu_torch.ops.ransac import (
+    RansacResult,
+    Samplers,
+    pick,
+    where_lane,
+    num_iterations,
+    ransac,
+)
 from vo_tpu_torch.ops.triangulate import triangulate_dlt
 
 
@@ -43,7 +52,7 @@ def fundamental_8point(
 
 def sampson_error(F: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
     """First-order geometric (Sampson) distance in squared pixels. F (..., 3,
-    3) broadcasts against pts (N, 2) -> (..., N)."""
+    3) against pts (..., N, 2) -> (..., N); the leading axes broadcast."""
     h1 = to_homogeneous(pts1)
     h2 = to_homogeneous(pts2)
     Fx1 = (F[..., None, :, :] @ h1[..., None])[..., 0]  # (..., N, 3)
@@ -54,7 +63,7 @@ def sampson_error(F: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> to
 
 
 def fundamental_ransac(
-    key: Sampler,
+    key: Samplers,
     pts1: torch.Tensor,
     pts2: torch.Tensor,
     valid: torch.Tensor | None = None,
@@ -63,9 +72,9 @@ def fundamental_ransac(
     confidence: float = 0.999,
     num_hypotheses: int | None = None,
 ) -> RansacResult:
-    """RANSAC 8-point F on fixed-capacity (N, 2) points with `valid`;
+    """RANSAC 8-point F on fixed-capacity (..., N, 2) points with `valid`;
     threshold on Sampson distance in px, then a refit on all inliers."""
-    n = pts1.shape[0]
+    n = pts1.shape[-2]
     h = num_hypotheses or num_iterations(confidence, outlier_ratio, 8)
 
     def model_fn(sample):
@@ -74,8 +83,8 @@ def fundamental_ransac(
         return F, torch.isfinite(F).flatten(-2).all(dim=-1)
 
     def error_fn(F, data):
-        d1, d2 = data
-        return sampson_error(F, d1, d2)
+        d1, d2 = data  # (..., N, 2) against F (..., C, 3, 3)
+        return sampson_error(F, d1.unsqueeze(-3), d2.unsqueeze(-3))
 
     res = ransac(
         key, (pts1, pts2), num_points=n, sample_size=8, num_hypotheses=h,
@@ -84,13 +93,13 @@ def fundamental_ransac(
     )
     w = res.inliers.to(pts1.dtype)
     F_refit = fundamental_8point(pts1, pts2, weight=w)
-    ok = torch.isfinite(F_refit).all() & (res.num_inliers >= 8)
-    F = torch.where(ok, F_refit, res.model)
+    ok = torch.isfinite(F_refit).flatten(-2).all(dim=-1) & (res.num_inliers >= 8)
+    F = where_lane(ok, F_refit, res.model)
     errors = sampson_error(F, pts1, pts2)
     inl = errors < inlier_threshold_px**2
     if valid is not None:
         inl = inl & valid
-    return RansacResult(model=F, inliers=inl, num_inliers=inl.sum(), errors=errors)
+    return RansacResult(model=F, inliers=inl, num_inliers=inl.sum(dim=-1), errors=errors)
 
 
 def essential_from_fundamental(
@@ -105,13 +114,14 @@ def essential_from_fundamental(
 
 
 class RelativePose(NamedTuple):
-    T_21: torch.Tensor  # (4, 4) transform frame1 -> frame2 ([R|t] with unit t)
-    points1: torch.Tensor  # (N, 3) triangulated points in frame-1 coordinates
-    good: torch.Tensor  # (N,) bool cheirality mask (positive depth both views)
+    T_21: torch.Tensor  # (..., 4, 4) transform frame1 -> frame2 ([R|t] with unit t)
+    points1: torch.Tensor  # (..., N, 3) triangulated points in frame-1 coordinates
+    good: torch.Tensor  # (..., N) bool cheirality mask (positive depth both views)
 
 
 def decompose_essential(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """E -> (4, 3, 3) rotation candidates paired with (4, 3) translations."""
+    """E (..., 3, 3) -> (..., 4, 3, 3) rotation candidates paired with
+    (..., 4, 3) translations."""
     U, _, Vh = svd_finite(E)
     detU = torch.linalg.det(U)
     detV = torch.linalg.det(Vh)
@@ -140,22 +150,26 @@ def relative_pose_from_essential(
     """Pick the E decomposition with the most points in front of both
     cameras (`weight` masks the vote) and triangulate all points with it.
     pts are PIXEL coordinates."""
-    Rs, ts = decompose_essential(E)  # (4,3,3), (4,3)
+    Rs, ts = decompose_essential(E)  # (..., 4, 3, 3), (..., 4, 3)
     eye34 = torch.cat([torch.eye(3, dtype=E.dtype, device=E.device),
                        torch.zeros((3, 1), dtype=E.dtype, device=E.device)], dim=1)
-    P1 = K1 @ eye34  # (3, 4)
-    P2 = K2 @ torch.cat([Rs, ts[..., None]], dim=-1)  # (4, 3, 4)
-    n = pts1.shape[0]
+    P1 = K1 @ eye34  # (..., 3, 4)
+    P2 = lift(K2, Rs.ndim) @ torch.cat([Rs, ts[..., None]], dim=-1)  # (..., 4, 3, 4)
+    lead = E.shape[:-2]
+    n = pts1.shape[-2]
     X1_all = triangulate_dlt(
-        P1.expand(4, n, 3, 4), P2[:, None].expand(4, n, 3, 4),
-        pts1.expand(4, n, 2), pts2.expand(4, n, 2),
-    )  # (4, N, 3) frame-1 coordinates
+        P1[..., None, None, :, :].expand(lead + (4, n, 3, 4)),
+        P2[..., :, None, :, :].expand(lead + (4, n, 3, 4)),
+        pts1.unsqueeze(-3).expand(lead + (4, n, 2)),
+        pts2.unsqueeze(-3).expand(lead + (4, n, 2)),
+    )  # (..., 4, N, 3) frame-1 coordinates
     z1 = X1_all[..., 2]
-    z2 = (Rs[:, None, 2, :] * X1_all).sum(dim=-1) + ts[:, None, 2]
+    z2 = (Rs[..., :, None, 2, :] * X1_all).sum(dim=-1) + ts[..., :, None, 2]
     front_all = (z1 > 0) & (z2 > 0)
-    votes = front_all if weight is None else front_all & weight[None, :].bool()
-    best = torch.argmax(votes.sum(dim=1))
-    T = torch.eye(4, dtype=E.dtype, device=E.device)
-    T[:3, :3] = Rs[best]
-    T[:3, 3] = ts[best]
-    return RelativePose(T_21=T, points1=X1_all[best], good=front_all[best])
+    votes = front_all if weight is None else front_all & weight.unsqueeze(-2).bool()
+    best = torch.argmax(votes.sum(dim=-1), dim=-1)
+    T = torch.zeros(lead + (4, 4), dtype=E.dtype, device=E.device)
+    T[..., :3, :3] = pick(Rs, best)
+    T[..., :3, 3] = pick(ts, best)
+    T[..., 3, 3] = 1.0
+    return RelativePose(T_21=T, points1=pick(X1_all, best), good=pick(front_all, best))

@@ -8,6 +8,10 @@ port of the detection half of vo_tpu/ops/harris.py.
 
 On a CUDA tensor `detect_keypoints` runs the response + NMS chain as ONE
 hand-written kernel (ops/kernels.py `corner_response_nms`, K1).
+
+Every function takes (H, W) or, with a leading lane axis, (B, H, W): the
+selection (quality floor, top-k, tie order) is per lane, and a batch of
+images on the card is ONE launch of the kernel (K1b).
 """
 
 from __future__ import annotations
@@ -47,9 +51,9 @@ def shi_tomasi_response(img: torch.Tensor, patch_size: int = 7) -> torch.Tensor:
 
 
 class Keypoints(NamedTuple):
-    xy: torch.Tensor  # (K, 2) float32 (x, y) pixel coordinates
-    score: torch.Tensor  # (K,) response values
-    valid: torch.Tensor  # (K,) bool
+    xy: torch.Tensor  # (..., K, 2) float32 (x, y) pixel coordinates
+    score: torch.Tensor  # (..., K) response values
+    valid: torch.Tensor  # (..., K) bool
 
 
 def _window_max(x: torch.Tensor, radius: int) -> torch.Tensor:
@@ -98,17 +102,17 @@ def select_from_masked(
     min_response: float = 0.0,
     quality_level: float = 0.0,
 ) -> Keypoints:
-    """Top-K selection tail over an NMS-masked response map."""
-    h, w = masked.shape
+    """Top-K selection tail over an NMS-masked response map (..., H, W)."""
+    w = masked.shape[-1]
     keep = masked > min_response
     if quality_level > 0.0:
         # The global max is itself a local max, so max(masked) == max(resp).
-        keep = keep & (masked > quality_level * masked.max())
+        keep = keep & (masked > quality_level * masked.amax(dim=(-2, -1), keepdim=True))
     if border > 0:
         box = torch.zeros_like(keep)
-        box[border:-border, border:-border] = True
+        box[..., border:-border, border:-border] = True
         keep = keep & box
-    flat = torch.where(keep, masked, -float("inf")).reshape(-1)
+    flat = torch.where(keep, masked, -float("inf")).flatten(-2)
     scores, idx = top_k(flat, num_keypoints)
     ys = (idx // w).to(torch.float32)
     xs = (idx % w).to(torch.float32)

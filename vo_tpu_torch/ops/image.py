@@ -1,8 +1,9 @@
 """Image primitives: Sobel, box and Gaussian filters, pyramids,
 central-difference gradients, bilinear sampling — port of vo_tpu/ops/image.py.
 
-Images are f32 (H, W) single-channel (a leading batch dim works too: every
-stencil acts on the last two axes). The separable stencils are shifted adds
+Images are f32 (H, W) single-channel, or (B, H, W) with a leading lane
+axis: every stencil acts on the last two axes, so lane b of a batched call
+is the unbatched call on lane b. The separable stencils are shifted adds
 in the reference's tap order with zero padding, so the plain versions here
 round exactly as the JAX oracle does; this is also the arithmetic the CUDA
 corner kernel (csrc/corner_nms.cu) reproduces.
@@ -87,9 +88,9 @@ def image_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def bilinear_sample(img: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Sample img (H, W) at float (x, y) locations pts (..., 2); coordinates
-    are clamped to the image."""
-    h, w = img.shape
+    """Sample img (H, W) at float (x, y) locations pts (..., 2), or img
+    (B, H, W) at pts (B, ..., 2); coordinates are clamped to the image."""
+    h, w = img.shape[-2:]
     x = torch.clamp(pts[..., 0], 0.0, w - 1.000001)
     y = torch.clamp(pts[..., 1], 0.0, h - 1.000001)
     x0 = torch.floor(x).long()
@@ -98,10 +99,17 @@ def bilinear_sample(img: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     y1 = torch.clamp(y0 + 1, max=h - 1)
     fx = x - x0.to(torch.float32)
     fy = y - y0.to(torch.float32)
-    v00 = img[y0, x0]
-    v01 = img[y0, x1]
-    v10 = img[y1, x0]
-    v11 = img[y1, x1]
+    lead = img.shape[:-2]
+    flat = img.reshape(lead + (h * w,))
+
+    def at(yy, xx):
+        idx = (yy * w + xx).reshape(lead + (-1,))
+        return torch.gather(flat, -1, idx).reshape(x.shape)
+
+    v00 = at(y0, x0)
+    v01 = at(y0, x1)
+    v10 = at(y1, x0)
+    v11 = at(y1, x1)
     return (
         v00 * (1 - fx) * (1 - fy)
         + v01 * fx * (1 - fy)

@@ -1,14 +1,16 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Two TPU kernels lie on the main path (vo_tpu/ops/pallas_kernels.py); each
-becomes a CUDA C++ kernel for Hopper (sm_90a) in vo_tpu_torch/csrc/, built
-by ops/_build.py and launched through ctypes on PyTorch's current stream:
+Four TPU kernels exist (vo_tpu/ops/pallas_kernels.py): two on the
+single-sequence path and their (B, ...) grid twins for the multi-sequence
+mode. Two CUDA C++ kernels for Hopper (sm_90a) in vo_tpu_torch/csrc/, built
+by ops/_build.py and launched through ctypes on PyTorch's current stream,
+compute all four:
 
-  K1 corner_response_nms  — csrc/corner_nms.cu   (detection, once per frame)
-  K2 extract_patches      — csrc/patch_gather.cu (LK patch gather, 8 per frame)
+  K1 / K1b corner_response_nms — csrc/corner_nms.cu   (detection, once per step)
+  K2 / K2b extract_patches     — csrc/patch_gather.cu (LK patch gather, 8 per step)
 
-Both take a leading batch dimension, so the (B, ...) Pallas twins used by
-the multi-sequence mode need no kernel of their own.
+Each kernel takes a leading batch dimension (the lane is a grid dimension),
+so B lanes are ONE launch, not B.
 
 Beside each kernel sits its plain PyTorch version — the CPU path and the
 kernel's oracle. A wrapper dispatches on the tensor's device: a CPU tensor
@@ -17,7 +19,9 @@ fallback). `use_kernel=False` asks for the plain version on purpose (the
 `--no-pallas` twin); `use_kernel=True` with a CPU tensor raises.
 
 Each wrapper adds one to `launch_counts[name]` where it launches its kernel
-and nowhere else, so a run can prove which path it took.
+and nowhere else, so a run can prove which path it took. A launch over more
+than one lane counts under the `_batched` name (K1b, K2b), any other under
+the plain name (K1, K2).
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ from vo_tpu_torch.ops.harris import (
     shi_tomasi_response,
 )
 
-launch_counts = {"corner_response_nms": 0, "extract_patches": 0}
+launch_counts = {
+    "corner_response_nms": 0,
+    "corner_response_nms_batched": 0,
+    "extract_patches": 0,
+    "extract_patches_batched": 0,
+}
 
 _MODES = {"shi_tomasi": 0, "harris": 1}
 
@@ -64,6 +73,19 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 def _raise_on_error(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch the empty kernel (csrc/empty_launch.cu) on `device`'s current
+    stream: what a launch through this module's ctypes path costs with no
+    work at all. It is a yardstick for timing, not part of any path, and
+    has no launch count."""
+    from vo_tpu_torch.ops._build import library
+
+    lib = library()
+    with torch.cuda.device(device):
+        err = lib.vo_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(err, "empty_launch")
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +150,7 @@ def corner_response_nms(
             patch_size, float(kappa), nms_radius, stream,
         )
     _raise_on_error(err, "corner_response_nms")
-    launch_counts["corner_response_nms"] += 1
+    launch_counts["corner_response_nms_batched" if b > 1 else "corner_response_nms"] += 1
     return out if batched else out[0]
 
 
@@ -201,5 +223,5 @@ def extract_patches(
             imgs.data_ptr(), cor.data_ptr(), out.data_ptr(), b, h, w, k, size, stream,
         )
     _raise_on_error(err, "extract_patches")
-    launch_counts["extract_patches"] += 1
+    launch_counts["extract_patches_batched" if b > 1 else "extract_patches"] += 1
     return out if batched else out[0]

@@ -12,6 +12,11 @@ The reference's `lax.while_loop` early exit becomes a fixed `max_iters`
 loop: converged keypoints add a delta of exactly 0, so the two agree bit for
 bit, and the fixed trip count needs no host sync. The reference's TPU-only
 48/256 over-pad of the levels (aligned DMA regions) is not carried over.
+
+Every function takes (K, 2) points with (H, W) levels or, with a leading
+lane axis, (B, K, 2) points with (B, H, W) levels; lane b of the batched
+call is the unbatched call on lane b, and each patch gather of a batch is
+ONE launch of the kernel (K2b).
 """
 
 from __future__ import annotations
@@ -28,41 +33,55 @@ MARGIN = 8
 
 
 class TrackResult(NamedTuple):
-    xy: torch.Tensor  # (K, 2) tracked positions in the next frame
-    status: torch.Tensor  # (K,) bool — converged, well-conditioned, in-bounds
-    err: torch.Tensor  # (K,) mean |I_next - I_prev| over the window
+    xy: torch.Tensor  # (..., K, 2) tracked positions in the next frame
+    status: torch.Tensor  # (..., K) bool — converged, well-conditioned, in-bounds
+    err: torch.Tensor  # (..., K) mean |I_next - I_prev| over the window
 
 
 def _extract_patches(
     img: torch.Tensor, corner: torch.Tensor, size: int, use_pallas: bool | None = None
 ) -> torch.Tensor:
-    """(K, size, size) contiguous patches at integer corners (K, 2) int32."""
+    """(..., K, size, size) contiguous patches at integer corners (..., K, 2)
+    int32."""
     return extract_patches(img, corner, size, use_kernel=use_pallas)
 
 
+def _pad_replicate(img: torch.Tensor, pad: int) -> torch.Tensor:
+    """Edge-replicate padding of the last two dims of (H, W) or (B, H, W)
+    (F.pad's replicate mode wants two leading dims of its own)."""
+    h, w = img.shape[-2:]
+    out = F.pad(img.reshape((1, -1, h, w)), (pad,) * 4, mode="replicate")
+    return out.reshape(img.shape[:-2] + (h + 2 * pad, w + 2 * pad))
+
+
 def _sel(pos: torch.Tensor, out_size: int, in_size: int) -> torch.Tensor:
-    """(K, out_size, in_size) bilinear selection (tent) matrices: row i
-    carries the interpolation weights for input coordinate pos + i."""
+    """(..., K, out_size, in_size) bilinear selection (tent) matrices from
+    pos (..., K): row i carries the interpolation weights for input
+    coordinate pos + i."""
     i = torch.arange(out_size, dtype=torch.float32, device=pos.device)
     j = torch.arange(in_size, dtype=torch.float32, device=pos.device)
-    p = pos[:, None] + i[None, :]  # (K, out)
-    return torch.clamp(1.0 - torch.abs(j[None, None, :] - p[:, :, None]), min=0.0)
+    p = pos[..., None] + i  # (..., K, out)
+    return torch.clamp(1.0 - torch.abs(j - p[..., None]), min=0.0)
 
 
 def _resample(patch: torch.Tensor, pos_xy: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Bilinear (out, out) windows from (K, P, P) patches at float corners
-    pos_xy (K, 2) — two batched f32 matmuls, no gathers."""
+    """Bilinear (out, out) windows from (..., K, P, P) patches at float
+    corners pos_xy (..., K, 2) — two batched f32 matmuls (the lane and
+    keypoint axes folded into one bmm batch), no gathers."""
     P = patch.shape[-1]
-    wy = _sel(pos_xy[:, 1], out_size, P)  # (K, out, P)
-    wx = _sel(pos_xy[:, 0], out_size, P)
-    return torch.bmm(torch.bmm(wy, patch), wx.transpose(1, 2))
+    wy = _sel(pos_xy[..., 1], out_size, P)  # (..., K, out, P)
+    wx = _sel(pos_xy[..., 0], out_size, P)
+    lead = patch.shape[:-2]
+    out = torch.bmm(torch.bmm(wy.flatten(0, -3), patch.flatten(0, -3)),
+                    wx.flatten(0, -3).transpose(1, 2))
+    return out.reshape(lead + (out_size, out_size))
 
 
 def _lk_level(
     prev_img: torch.Tensor,
     next_img: torch.Tensor,
-    pt_prev: torch.Tensor,  # (K, 2) template centers at this level
-    guess: torch.Tensor,  # (K, 2) flow guess at this level
+    pt_prev: torch.Tensor,  # (..., K, 2) template centers at this level
+    guess: torch.Tensor,  # (..., K, 2) flow guess at this level
     radius: int,
     max_iters: int,
     eps: float,
@@ -70,13 +89,13 @@ def _lk_level(
     use_pallas: bool | None = None,
 ):
     """One pyramid level of Bouguet LK for all keypoints. Returns
-    (flow (K,2), conditioned (K,) bool, err (K,))."""
-    h, w = prev_img.shape
+    (flow (..., K, 2), conditioned (..., K) bool, err (..., K))."""
+    h, w = prev_img.shape[-2:]
     win = 2 * radius + 1
     # Edge-replicate padding keeps every patch corner below in range.
     pad = radius + MARGIN + 2
-    prev_p = F.pad(prev_img[None, None], (pad,) * 4, mode="replicate")[0, 0]
-    next_p = F.pad(next_img[None, None], (pad,) * 4, mode="replicate")[0, 0]
+    prev_p = _pad_replicate(prev_img, pad)
+    next_p = _pad_replicate(next_img, pad)
     zero = torch.zeros(2, dtype=torch.float32, device=pt_prev.device)
     bound = torch.tensor([w - 1.0, h - 1.0], dtype=torch.float32, device=pt_prev.device)
 
@@ -87,14 +106,14 @@ def _lk_level(
     tcorner = base.to(torch.int32) - radius - 2 + pad
     tpatch = _extract_patches(prev_p, tcorner, tp_size, use_pallas)
     tfrac = pt_c - base
-    T_ext = _resample(tpatch, tfrac + 1.0, win + 2)  # (K, win+2, win+2)
-    T = T_ext[:, 1:-1, 1:-1]
-    Ix = 0.5 * (T_ext[:, 1:-1, 2:] - T_ext[:, 1:-1, :-2])
-    Iy = 0.5 * (T_ext[:, 2:, 1:-1] - T_ext[:, :-2, 1:-1])
+    T_ext = _resample(tpatch, tfrac + 1.0, win + 2)  # (..., K, win+2, win+2)
+    T = T_ext[..., 1:-1, 1:-1]
+    Ix = 0.5 * (T_ext[..., 1:-1, 2:] - T_ext[..., 1:-1, :-2])
+    Iy = 0.5 * (T_ext[..., 2:, 1:-1] - T_ext[..., :-2, 1:-1])
 
-    gxx = (Ix * Ix).sum(dim=(1, 2))
-    gxy = (Ix * Iy).sum(dim=(1, 2))
-    gyy = (Iy * Iy).sum(dim=(1, 2))
+    gxx = (Ix * Ix).sum(dim=(-2, -1))
+    gxy = (Ix * Iy).sum(dim=(-2, -1))
+    gyy = (Iy * Iy).sum(dim=(-2, -1))
     det = gxx * gyy - gxy * gxy
     dg = gxx - gyy
     min_eig = 0.5 * (gxx + gyy) - torch.sqrt(
@@ -108,26 +127,26 @@ def _lk_level(
     center0 = torch.clamp(pt_prev + guess, zero, bound)
     scorner = torch.floor(center0).to(torch.int32) - radius - MARGIN + pad
     spatch = _extract_patches(next_p, scorner, sp_size, use_pallas)
-    s_base = (center0 - radius) + pad - scorner.to(torch.float32)  # (K, 2)
+    s_base = (center0 - radius) + pad - scorner.to(torch.float32)  # (..., K, 2)
     pos_hi = float(sp_size - win - 1) - 1e-4
 
-    def sample_next(pos):  # pos (K, 2) -> (K, win, win)
+    def sample_next(pos):  # pos (..., K, 2) -> (..., K, win, win)
         return _resample(spatch, torch.clamp(pos, 0.0, pos_hi), win)
 
     d = torch.zeros_like(pt_prev)
     active = conditioned
     for _ in range(max_iters):
         diff = T - sample_next(s_base + d)
-        bx = (diff * Ix).sum(dim=(1, 2))
-        by = (diff * Iy).sum(dim=(1, 2))
+        bx = (diff * Ix).sum(dim=(-2, -1))
+        by = (diff * Iy).sum(dim=(-2, -1))
         # Solve G delta = b with the cached 2x2 inverse.
         dx = inv_det * (gyy * bx - gxy * by)
         dy = inv_det * (-gxy * bx + gxx * by)
-        delta = torch.where(active[:, None], torch.stack([dx, dy], dim=-1), 0.0)
+        delta = torch.where(active[..., None], torch.stack([dx, dy], dim=-1), 0.0)
         d = d + delta
         active = active & ((delta * delta).sum(dim=-1) > eps * eps)
 
-    err = torch.abs(sample_next(s_base + d) - T).mean(dim=(1, 2))
+    err = torch.abs(sample_next(s_base + d) - T).mean(dim=(-2, -1))
     return guess + d, conditioned, err
 
 
@@ -144,22 +163,23 @@ def pyramidal_lk(
     init_flow: torch.Tensor | None = None,
 ) -> TrackResult:
     """Track keypoints xy (K, 2) from prev to next frame across a Gaussian
-    pyramid (level 0 = full res). `init_flow` (K, 2) seeds the level-0 flow
+    pyramid (level 0 = full res), or (B, K, 2) keypoints across (B, H, W)
+    levels. `init_flow`, shaped as xy, seeds the level-0 flow
     (motion-model prediction); non-finite or absurd guesses fall back to 0.
     `use_pallas` routes the patch gathers: None = by device, False = plain."""
     levels = len(prev_pyr)
     if init_flow is None:
         flow = torch.zeros_like(xy)
     else:
-        h0, w0 = prev_pyr[0].shape
+        h0, w0 = prev_pyr[0].shape[-2:]
         sane = (
             torch.isfinite(init_flow).all(dim=-1)
-            & (init_flow[:, 0].abs() < 0.5 * w0)
-            & (init_flow[:, 1].abs() < 0.5 * h0)
+            & (init_flow[..., 0].abs() < 0.5 * w0)
+            & (init_flow[..., 1].abs() < 0.5 * h0)
         )
-        flow = torch.where(sane[:, None], init_flow, 0.0) / (2.0 ** (levels - 1))
-    conditioned = torch.ones(xy.shape[0], dtype=torch.bool, device=xy.device)
-    err = torch.zeros(xy.shape[0], dtype=torch.float32, device=xy.device)
+        flow = torch.where(sane[..., None], init_flow, 0.0) / (2.0 ** (levels - 1))
+    conditioned = torch.ones(xy.shape[:-1], dtype=torch.bool, device=xy.device)
+    err = torch.zeros(xy.shape[:-1], dtype=torch.float32, device=xy.device)
     for lvl in range(levels - 1, -1, -1):
         scale = 2.0**lvl
         flow, cond_l, err = _lk_level(
@@ -170,12 +190,12 @@ def pyramidal_lk(
             flow = flow * 2.0
         conditioned = conditioned & cond_l
     new_xy = xy + flow
-    h, w = prev_pyr[0].shape
+    h, w = prev_pyr[0].shape[-2:]
     in_bounds = (
-        (new_xy[:, 0] >= radius)
-        & (new_xy[:, 0] < w - radius)
-        & (new_xy[:, 1] >= radius)
-        & (new_xy[:, 1] < h - radius)
+        (new_xy[..., 0] >= radius)
+        & (new_xy[..., 0] < w - radius)
+        & (new_xy[..., 1] >= radius)
+        & (new_xy[..., 1] < h - radius)
     )
     status = conditioned & in_bounds & (err < max_err)
     return TrackResult(xy=new_xy, status=status, err=err)

@@ -62,34 +62,42 @@ def spd_solve_small(A: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
 
 def spd_solve_blocked(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve the SPD block system sum_j S[i,j] x_j = b_i by block-Cholesky.
-    S: (W, W, B, B), only the lower block triangle is read; b: (W, B)."""
-    W, B = S.shape[0], S.shape[2]
+    S: (..., W, W, B, B), only the lower block triangle is read; b:
+    (..., W, B). Leading axes are independent systems (lanes)."""
+    W, B = S.shape[-4], S.shape[-2]
+
+    def t(M):
+        return M.transpose(-1, -2)
+
+    def mv(M, v):
+        return M @ v if v.ndim == 1 else (M @ v[..., None])[..., 0]
+
     L = [[None] * W for _ in range(W)]
     for j in range(W):
-        D = S[j, j]
+        D = S[..., j, j, :, :]
         for k in range(j):
-            D = D - L[j][k] @ L[j][k].T
+            D = D - L[j][k] @ t(L[j][k])
         Ljj = chol_small(D, B)
         L[j][j] = Ljj
         for i in range(j + 1, W):
-            M = S[i, j]
+            M = S[..., i, j, :, :]
             for k in range(j):
-                M = M - L[i][k] @ L[j][k].T
+                M = M - L[i][k] @ t(L[j][k])
             # X = M Ljj^{-T}  <=>  Ljj X^T = M^T
-            L[i][j] = tri_solve_lower(Ljj, M.T, B).T
+            L[i][j] = t(tri_solve_lower(Ljj, t(M), B))
     y = [None] * W
     for i in range(W):
-        s = b[i]
+        s = b[..., i, :]
         for k in range(i):
-            s = s - L[i][k] @ y[k]
-        y[i] = tri_solve_lower(L[i][i], s[:, None], B)[:, 0]
+            s = s - mv(L[i][k], y[k])
+        y[i] = tri_solve_lower(L[i][i], s[..., None], B)[..., 0]
     x = [None] * W
     for i in reversed(range(W)):
         s = y[i]
         for k in range(i + 1, W):
-            s = s - L[k][i].T @ x[k]
-        x[i] = tri_solve_lower_t(L[i][i], s[:, None], B)[:, 0]
-    return torch.stack(x)
+            s = s - mv(t(L[k][i]), x[k])
+        x[i] = tri_solve_lower_t(L[i][i], s[..., None], B)[..., 0]
+    return torch.stack(x, dim=-2)
 
 
 def _finite_rows(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

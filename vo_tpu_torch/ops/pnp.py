@@ -4,6 +4,10 @@ refinement — port of vo_tpu/ops/pnp.py.
 Every solver takes leading batch axes (the reference vmaps over RANSAC
 hypotheses; here the hypothesis axis is written out). Pose convention:
 solvers return T_cw (world -> camera, the classic [R|t]).
+
+Lanes: `pnp_ransac` and `refine_pose_gn` take (N, ...) points with K (3, 3)
+or, with a leading lane axis, (B, N, ...) points with K (B, 3, 3) and one
+sampler per lane; lane b of the result is the unbatched call on lane b.
 """
 
 from __future__ import annotations
@@ -13,9 +17,9 @@ from typing import NamedTuple
 import torch
 
 from vo_tpu_torch.geom.lie import se3_exp
-from vo_tpu_torch.geom.points import skew, to_homogeneous
+from vo_tpu_torch.geom.points import bmat, skew, to_homogeneous
 from vo_tpu_torch.ops.linalg import spd_solve_small
-from vo_tpu_torch.ops.ransac import RansacResult, Sampler, num_iterations, ransac
+from vo_tpu_torch.ops.ransac import RansacResult, Samplers, num_iterations, ransac
 
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -207,15 +211,17 @@ def p3p_grunert(X_w: torch.Tensor, rays: torch.Tensor) -> tuple[torch.Tensor, to
 
 
 def bearing_rays(uv: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """Pixels (..., 2) -> unit bearing vectors (..., 3) via K^-1."""
-    r = (torch.linalg.inv(K) @ to_homogeneous(uv)[..., None])[..., 0]
+    """Pixels (..., 2) -> unit bearing vectors (..., 3) via K^-1 (K (3, 3),
+    or per lane (B, 3, 3) against uv (B, ..., 2))."""
+    h = to_homogeneous(uv)
+    r = (bmat(torch.linalg.inv(K), h) @ h[..., None])[..., 0]
     return r / torch.clamp(torch.linalg.vector_norm(r, dim=-1, keepdim=True), min=1e-20)
 
 
 def project_T(T_cw: torch.Tensor, K: torch.Tensor, X_w: torch.Tensor) -> torch.Tensor:
     """Project world points with [R|t] and K -> (..., 2) pixels."""
     Xc = (T_cw[..., :3, :3] @ X_w[..., None])[..., 0] + T_cw[..., :3, 3]
-    p = (K @ Xc[..., None])[..., 0]
+    p = (bmat(K, Xc) @ Xc[..., None])[..., 0]
     z = p[..., 2:3]
     z = torch.where(z.abs() < 1e-9, torch.where(z < 0, -1e-9, 1e-9), z)
     return p[..., :2] / z
@@ -244,14 +250,14 @@ def p3p_solve_sample(
 
 
 class PnPResult(NamedTuple):
-    T_cw: torch.Tensor  # (4, 4) world -> camera
-    inliers: torch.Tensor  # (N,) bool
-    num_inliers: torch.Tensor  # () int
-    errors: torch.Tensor  # (N,) pixel reprojection errors of best model
+    T_cw: torch.Tensor  # (..., 4, 4) world -> camera
+    inliers: torch.Tensor  # (..., N) bool
+    num_inliers: torch.Tensor  # (...) int
+    errors: torch.Tensor  # (..., N) pixel reprojection errors of best model
 
 
 def pnp_ransac(
-    key: Sampler,
+    key: Samplers,
     X_w: torch.Tensor,
     uv: torch.Tensor,
     K: torch.Tensor,
@@ -263,19 +269,19 @@ def pnp_ransac(
     refine_iters: int = 10,
 ) -> PnPResult:
     """RANSAC-P3P localization + Gauss-Newton refinement on inliers."""
-    n = X_w.shape[0]
+    n = X_w.shape[-2]
     h = num_hypotheses or num_iterations(confidence, outlier_ratio, 4)
 
     def model_fn(sample):
         sx, suv = sample
         return p3p_solve_sample(sx, suv, K)
 
-    def error_fn(T, data):  # T (C, 4, 4) -> (C, N)
-        dx, duv = data
-        T_ = T[:, None]
-        uv_hat = project_T(T_, K, dx[None])
-        z = (T_[..., 2, :3] * dx[None]).sum(dim=-1) + T_[..., 2, 3]
-        err = torch.linalg.vector_norm(uv_hat - duv[None], dim=-1)
+    def error_fn(T, data):  # T (..., C, 4, 4) -> (..., C, N)
+        dx, duv = (d.unsqueeze(-3) for d in data)  # (..., 1, N, .)
+        T_ = T.unsqueeze(-3)  # (..., C, 1, 4, 4)
+        uv_hat = project_T(T_, K, dx)
+        z = (T_[..., 2, :3] * dx).sum(dim=-1) + T_[..., 2, 3]
+        err = torch.linalg.vector_norm(uv_hat - duv, dim=-1)
         return torch.where(z > 0, err, float("inf"))
 
     res: RansacResult = ransac(
@@ -284,11 +290,11 @@ def pnp_ransac(
     T = res.model
     if refine_iters:
         T = refine_pose_gn(T, X_w, uv, K, res.inliers.to(X_w.dtype), iters=refine_iters)
-        err = error_fn(T[None], (X_w, uv))[0]
+        err = error_fn(T.unsqueeze(-3), (X_w, uv))[..., 0, :]
         inl = err < inlier_threshold_px
         if valid is not None:
             inl = inl & valid
-        return PnPResult(T, inl, inl.sum(), err)
+        return PnPResult(T, inl, inl.sum(dim=-1), err)
     return PnPResult(T, res.inliers, res.num_inliers, res.errors)
 
 
@@ -304,16 +310,17 @@ def refine_pose_gn(
     """Fixed-iteration Levenberg-damped Gauss-Newton over the se(3) twist
     (LEFT perturbation T <- exp(xi) T); the 6x6 normal equations are solved
     by the hand-written SPD Cholesky (`spd_solve_small`)."""
-    fx, fy = K[0, 0], K[1, 1]
+    fx, fy, cx, cy = (K[..., i, j, None] for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
     eye6 = torch.eye(6, dtype=T_cw.dtype, device=T_cw.device)
     eye3 = torch.eye(3, dtype=T_cw.dtype, device=T_cw.device)
     T = T_cw
     for _ in range(iters):
-        Y = (T[:3, :3] @ X_w[..., None])[..., 0] + T[:3, 3]  # (N, 3) camera pts
+        # (..., N, 3) camera points
+        Y = (bmat(T[..., :3, :3], X_w) @ X_w[..., None])[..., 0] + T[..., None, :3, 3]
         z = Y[..., 2]
         inv_z = 1.0 / torch.where(z.abs() < 1e-6, 1e-6, z)
         uv_hat = torch.stack(
-            [fx * Y[..., 0] * inv_z + K[0, 2], fy * Y[..., 1] * inv_z + K[1, 2]], dim=-1
+            [fx * Y[..., 0] * inv_z + cx, fy * Y[..., 1] * inv_z + cy], dim=-1
         )
         r = uv_hat - uv
         w = weights * (z > 1e-6)
@@ -328,9 +335,9 @@ def refine_pose_gn(
         J_xi = torch.cat([eye3.expand(Y.shape[:-1] + (3, 3)), -skew(Y)], dim=-1)
         J = J_pi @ J_xi  # (N, 2, 6)
         Jw = J * w[..., None, None]
-        H = torch.einsum("nij,nik->jk", Jw, J) + damping * eye6
-        g = torch.einsum("nij,ni->j", Jw, r)
+        H = torch.einsum("...nij,...nik->...jk", Jw, J) + damping * eye6
+        g = torch.einsum("...nij,...ni->...j", Jw, r)
         delta = spd_solve_small(H, -g, 6)
-        delta = torch.where(torch.isfinite(delta).all(), delta, 0.0)
+        delta = torch.where(torch.isfinite(delta).all(dim=-1, keepdim=True), delta, 0.0)
         T = se3_exp(delta) @ T
     return T

@@ -9,12 +9,20 @@ Randomness: where the reference takes a `jax.random` key, the port takes a
 callable with `sample_indices`' remaining arguments that returns (H, s)
 indices drawn elsewhere. The tests use the latter to replay the JAX
 package's exact draws.
+
+Lanes: data with a leading lane axis (B, N, ...) runs B independent RANSACs
+in one pass — (B, H, s) indices, (B, H, N) errors scored per lane, the
+chunked running best per lane. The sampler of a batch is a SEQUENCE of B
+samplers, one per lane (as the reference gives each lane its own key), and
+lane b draws from the b-th alone: what a lane draws never depends on its
+neighbours. `IDLE` stands in for the sampler of a lane whose result the
+caller will discard: it draws nothing.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Union
+from typing import Any, Callable, NamedTuple, Sequence, Union
 
 import torch
 
@@ -22,6 +30,18 @@ from vo_tpu_torch.ops.harris import top_k
 
 # torch.Generator, or (num_hypotheses, num_points, sample_size, valid) -> (H, s).
 Sampler = Union[torch.Generator, Callable[..., torch.Tensor]]
+# One sampler, or one per lane of a batch.
+Samplers = Union[Sampler, Sequence[Sampler]]
+
+
+def IDLE(num_hypotheses, num_points, sample_size, valid=None) -> torch.Tensor:
+    """The sampler of a lane that is computed but not used: the first
+    `sample_size` slots for every hypothesis, and no random draw."""
+    return torch.arange(sample_size).expand(num_hypotheses, sample_size)
+
+
+def is_lane_samplers(key) -> bool:
+    return isinstance(key, (list, tuple))
 
 
 def num_iterations(
@@ -37,9 +57,9 @@ def num_iterations(
 
 class RansacResult(NamedTuple):
     model: Any  # best model (tensor or tuple of tensors)
-    inliers: torch.Tensor  # (N,) bool inlier mask of the best model
-    num_inliers: torch.Tensor  # () int
-    errors: torch.Tensor  # (N,) residuals of the best model
+    inliers: torch.Tensor  # (..., N) bool inlier mask of the best model
+    num_inliers: torch.Tensor  # (...) int
+    errors: torch.Tensor  # (..., N) residuals of the best model
 
 
 def _map(fn, tree):
@@ -56,14 +76,21 @@ def _map2(fn, a, b):
 
 
 def sample_indices(
-    key: Sampler,
+    key: Samplers,
     num_hypotheses: int,
     num_points: int,
     sample_size: int,
     valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(H, s) int64 indices, each row distinct and drawn only from valid
-    slots (Gumbel-top-k on the generator's device)."""
+    slots (Gumbel-top-k on the generator's device). A sequence of B samplers
+    with `valid` (B, N) gives (B, H, s): lane b from sampler b alone."""
+    if is_lane_samplers(key):
+        return torch.stack([
+            sample_indices(k, num_hypotheses, num_points, sample_size,
+                           None if valid is None else valid[b])
+            for b, k in enumerate(key)
+        ])
     if callable(key):
         idx = key(num_hypotheses, num_points, sample_size, valid)
         dev = valid.device if valid is not None else None
@@ -81,8 +108,29 @@ def sample_indices(
     return idx
 
 
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (*lead, N, *tail) gathered at idx (*lead, C, s) -> (*lead, C, s, *tail)."""
+    lead = idx.ndim - 2
+    tail = x.shape[lead + 1:]
+    flat = idx.reshape(idx.shape[:lead] + (-1,) + (1,) * len(tail))
+    out = torch.take_along_dim(x, flat, dim=lead)
+    return out.reshape(idx.shape + tail)
+
+
+def pick(x: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """x (*lead, C, *tail) at best (*lead) -> (*lead, *tail)."""
+    lead = best.ndim
+    idx = best.reshape(best.shape + (1,) * (x.ndim - lead))
+    return torch.take_along_dim(x, idx, dim=lead).squeeze(lead)
+
+
+def where_lane(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.where with a per-lane condition (*lead) against (*lead, *tail)."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - cond.ndim)), a, b)
+
+
 def ransac(
-    key: Sampler,
+    key: Samplers,
     data: Any,
     num_points: int,
     sample_size: int,
@@ -95,61 +143,59 @@ def ransac(
 ) -> RansacResult:
     """Fixed-budget RANSAC.
 
-    data: tensor or tuple of tensors with leading axis N. model_fn maps
-    BATCHED minimal samples (leaves (C, s, ...)) to (models (C, ...), ok (C,)
-    bool); error_fn maps (models (C, ...), data) to (C, N) residuals — the
-    batch axis the reference adds with vmap is written out. Inliers are
-    error < threshold (restricted to `valid`). Budgets above `chunk_size`
-    run as blocks carrying the running best, so the (H, N) error matrix
-    never materializes.
+    data: tensor or tuple of tensors with leading axis N, or (B, N) with a
+    lane axis (then `key` is a sequence of B samplers and `valid` (B, N)).
+    model_fn maps BATCHED minimal samples (leaves (..., C, s, ...)) to
+    (models (..., C, ...), ok (..., C) bool); error_fn maps (models
+    (..., C, ...), data) to (..., C, N) residuals — the batch axis the
+    reference adds with vmap is written out. Inliers are error < threshold
+    (restricted to `valid`). Budgets above `chunk_size` run as blocks
+    carrying the running best, so the (H, N) error matrix never
+    materializes.
     """
 
     def _score_block(idx_block):
-        c = idx_block.shape[0]
-        samples = _map(
-            lambda x: x[idx_block.reshape(-1)].reshape((c, sample_size) + x.shape[1:]),
-            data,
-        )
+        samples = _map(lambda x: _rows(x, idx_block), data)
         models, ok = model_fn(samples)
-        errors = error_fn(models, data)  # (C, N)
+        errors = error_fn(models, data)  # (..., C, N)
         inlier_mask = errors < inlier_threshold
         if valid is not None:
-            inlier_mask = inlier_mask & valid[None, :]
-        scores = inlier_mask.sum(dim=1) * ok.to(torch.int64)
+            inlier_mask = inlier_mask & valid[..., None, :]
+        scores = inlier_mask.sum(dim=-1) * ok.to(torch.int64)
         return models, scores, errors, inlier_mask
 
     if num_hypotheses <= chunk_size:
         idx = sample_indices(key, num_hypotheses, num_points, sample_size, valid)
         models, scores, errors, inlier_mask = _score_block(idx)
-        best = torch.argmax(scores)
+        best = torch.argmax(scores, dim=-1)
         return RansacResult(
-            model=_map(lambda x: x[best], models),
-            inliers=inlier_mask[best],
-            num_inliers=scores[best],
-            errors=errors[best],
+            model=_map(lambda x: pick(x, best), models),
+            inliers=pick(inlier_mask, best),
+            num_inliers=pick(scores, best),
+            errors=pick(errors, best),
         )
 
     n_chunks = -(-num_hypotheses // chunk_size)
-    idx = sample_indices(
-        key, n_chunks * chunk_size, num_points, sample_size, valid
-    ).reshape(n_chunks, chunk_size, sample_size)
+    idx = sample_indices(key, n_chunks * chunk_size, num_points, sample_size, valid)
+    idx = idx.reshape(idx.shape[:-2] + (n_chunks, chunk_size, sample_size))
     best_score = None
     best_model = None
     for blk in range(n_chunks):
-        models, scores, _, _ = _score_block(idx[blk])
-        b = torch.argmax(scores)
-        blk_score = scores[b]
-        blk_model = _map(lambda x: x[b], models)
+        models, scores, _, _ = _score_block(idx[..., blk, :, :])
+        b = torch.argmax(scores, dim=-1)
+        blk_score = pick(scores, b)
+        blk_model = _map(lambda x: pick(x, b), models)
         if best_score is None:
             best_score, best_model = blk_score, blk_model
             continue
         take_new = blk_score > best_score
-        best_model = _map2(lambda n, o: torch.where(take_new, n, o), blk_model, best_model)
+        best_model = _map2(lambda n, o: where_lane(take_new, n, o), blk_model, best_model)
         best_score = torch.maximum(best_score, blk_score)
-    errors = error_fn(_map(lambda x: x[None], best_model), data)[0]
+    lead = best_score.ndim
+    errors = error_fn(_map(lambda x: x.unsqueeze(lead), best_model), data)[..., 0, :]
     inliers = errors < inlier_threshold
     if valid is not None:
         inliers = inliers & valid
     return RansacResult(
-        model=best_model, inliers=inliers, num_inliers=inliers.sum(), errors=errors
+        model=best_model, inliers=inliers, num_inliers=inliers.sum(dim=-1), errors=errors
     )

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from vo_tpu_torch.geom.points import bmat
 from vo_tpu_torch.ops.linalg import eigh_finite
 
 
@@ -30,12 +31,13 @@ def _guard(w: torch.Tensor, tiny: float) -> torch.Tensor:
 def triangulate_dlt(
     P1: torch.Tensor, P2: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor
 ) -> torch.Tensor:
-    """P1, P2: (3, 4) or (N, 3, 4); uv1, uv2: (N, 2) -> (N, 3) points in the
-    frame the projection matrices map from."""
-    if P1.ndim == 2:
-        P1 = P1.expand(uv1.shape[:-1] + (3, 4))
-    if P2.ndim == 2:
-        P2 = P2.expand(uv2.shape[:-1] + (3, 4))
+    """uv1, uv2: (..., N, 2); P1, P2: one matrix for all points (..., 3, 4)
+    or one per point (..., N, 3, 4) -> (..., N, 3) points in the frame the
+    projection matrices map from. Leading axes are lanes."""
+    if P1.ndim == uv1.ndim:
+        P1 = P1.unsqueeze(-3).expand(uv1.shape[:-1] + (3, 4))
+    if P2.ndim == uv2.ndim:
+        P2 = P2.unsqueeze(-3).expand(uv2.shape[:-1] + (3, 4))
     A = torch.cat([_dlt_rows(P1, uv1), _dlt_rows(P2, uv2)], dim=-2)  # (N, 4, 4)
     _, vecs = eigh_finite(A.transpose(-1, -2) @ A)  # ascending eigenvalues
     X_h = vecs[..., :, 0]
@@ -43,7 +45,8 @@ def triangulate_dlt(
 
 
 def reprojection_error(P: torch.Tensor, X: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Euclidean pixel reprojection error. P (...,3,4), X (...,3), uv (...,2)."""
+    """Euclidean pixel reprojection error. X (..., N, 3), uv (..., N, 2); P
+    one matrix (3, 4), one per lane (B, 3, 4) or one per point (..., N, 3, 4)."""
     Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
-    p = (P @ Xh[..., None])[..., 0]
+    p = (bmat(P, Xh) @ Xh[..., None])[..., 0]
     return torch.linalg.vector_norm(p[..., :2] / _guard(p[..., 2:3], 1e-12) - uv, dim=-1)

@@ -9,16 +9,21 @@ Phases:
   1. identify the card (nvidia-smi name and power limit);
   2. `build`: the CUDA kernels from vo_tpu_torch/csrc (nvcc, sm_90a), and the
      time of an empty launch (the floor under every kernel time);
-  3. `k1` corner_response_nms: kernel vs plain version on the card, both
-     modes, several shapes and a batch of 3; both timed at 480x640;
+  3. `k1` corner_response_nms: kernel vs plain version on the card, the
+     specialised (patch, r) instances and the generic one, shapes smaller
+     than a tile and not a multiple of it, a batch of 3; timed at 480x640,
+     with the blocks an SM, the grid and the waves of that launch;
   4. `k2` extract_patches: kernel vs plain, bit-identical, sizes 21/35,
      K=1024 on a 516x676 level (corners needing clamping included), a batch
-     of 3; both timed;
-  5. `k1b`: the corner kernel over a batch of 6 lanes (6, 480, 640), both
-     modes, against the plain version; both timed;
+     of 3; then extract_patch_pairs (both gathers of an LK level in one
+     launch, no padded copies) against pad + two plain gathers, bit-identical,
+     at the four level shapes of 640x480 with K=1024, corners on and beyond
+     the border; timed at level 0 beside two single launches;
+  5. `k1b`: the corner kernel over a batch of 6 lanes (6, 480, 640), against
+     the plain version; both timed;
   6. `k2b`: the gather kernel over 6 lanes, (6, 516, 676) and the coarsest
      level (6, 96, 116) with (6, 512, 2) corners, sizes 21/35, bit-identical;
-     both timed;
+     then the pair over 6 lanes at the four level shapes; timed;
   7. `headline`: render the synthetic city on the device, check two frames
      against the numpy renderer, run bootstrap + vo_step over the sequence
      with VOConfig(capacity=1024), and gate the launch counts, finiteness,
@@ -29,7 +34,12 @@ Phases:
      lockstep in chunks of 64, then the distorted-lens lane on its own;
      gates the batched launch counts, finiteness, per-lane pose_ok and ATE.
 
-Prints the card line, a JSON line describing every kernel (its time beside
+Every kernel time is taken twice: `ms` by CUDA events around 50 eager calls
+of the wrapper (what the path pays; at these sizes mostly the host's enqueue)
+and `device_ms` by replaying the same calls captured in a CUDA graph (what
+the device needs once the host is out of the way).
+
+Prints the card line, a JSON line describing every kernel (its times beside
 its bound, the plain version and, where there is one, a single PyTorch
 call), and as the last line {"ok": true, "device": {...}}. Any failed phase
 exits non-zero without that line; so does a machine without CUDA.
@@ -51,8 +61,19 @@ REFERENCE_ATE_M = 1.181  # tools/headline_expected.json (the JAX package)
 ATE_GATE_M = 1.77  # 1.5x the reference, just above its 1.753 m regression
 POSE_OK_SLACK = 7  # pose_ok must hold on all but this many frames
 
+# Shapes: not a multiple of the kernel's tile, less than one tile, full size.
 K1_SHAPES = [(150, 260), (64, 200), (30, 40), (480, 640)]
-K1_MODES = [("shi_tomasi", 7, 8), ("harris", 9, 5)]
+# (mode, patch, r): the three specialised instances (the configuration's own
+# values, and the defaults of harris_response / detect_keypoints), then a
+# pair that only the generic instance takes.
+K1_MODES = [("shi_tomasi", 7, 8), ("harris", 7, 5), ("harris", 9, 5), ("shi_tomasi", 5, 3)]
+# The four pyramid levels of a 640x480 frame and the LK gathers on them:
+# template windows of 21, search windows of 35, levels padded by 18.
+LK_LEVEL_SHAPES = [(480, 640), (240, 320), (120, 160), (60, 80)]
+LK_TSIZE, LK_SSIZE, LK_PAD = 21, 35, 18
+# A window's corner lies this far up and left of its centre's pixel
+# (radius + 2 for the template, radius + MARGIN for the search window).
+LK_CORNER_OFFSET = {LK_TSIZE: 10, LK_SSIZE: 16}
 
 # The multi-sequence phase. Per-lane ATE of the JAX package's own run of
 # these lanes (EVAL.md, taken on a TPU): a yardstick of ACCURACY only.
@@ -106,6 +127,37 @@ def _time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device time of fn() in ms with the host out of the way: `reps` calls
+    captured once in a CUDA graph (the ctypes launches go to the capturing
+    stream) and the graph replayed `replays` times between two events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    return ms
+
+
 def _interleaved(plain, kernel) -> tuple[float, float]:
     """Times in turns (plain, kernel, kernel, plain) -> (kernel_ms, plain_ms)."""
     p1 = _time_ms(plain)
@@ -138,6 +190,18 @@ def _k2_bound(record: dict, img_shape, corners_shape, size: int) -> None:
     _bound(record, (n_out + min(n_out, n_img)) * 4 + int(np.prod(corners_shape)) * 4, 0)
 
 
+def _pair_bound(record: dict, img_shape, k: int) -> None:
+    """The pair writes both patch sets once, reads from each of the two
+    levels the pixels it gathers, at most the whole level, and reads both
+    corner sets; it computes nothing."""
+    lanes = int(np.prod(img_shape[:-2]))
+    n_img = int(np.prod(img_shape))
+    n_t = lanes * k * LK_TSIZE * LK_TSIZE
+    n_s = lanes * k * LK_SSIZE * LK_SSIZE
+    n_cor = 2 * lanes * k * 2
+    _bound(record, (n_t + n_s + min(n_t, n_img) + min(n_s, n_img) + n_cor) * 4, 0)
+
+
 def phase_k1(dev, record: dict) -> None:
     _k1_parity(dev, record, "k1", [(shape, m) for shape in K1_SHAPES for m in K1_MODES]
                + [((3, 96, 200), K1_MODES[0])], (480, 640))
@@ -146,6 +210,25 @@ def phase_k1(dev, record: dict) -> None:
 def phase_k1b(dev, record: dict) -> None:
     shape = (MULTISEQ_LANES, 480, 640)
     _k1_parity(dev, record, "k1b", [(shape, m) for m in K1_MODES], shape)
+
+
+def _k1_launch_shape(dev, tag: str, record: dict, shape, patch: int, r: int) -> None:
+    """Blocks an SM (from the occupancy API), grid and waves of the corner
+    kernel's launch at `shape`."""
+    from vo_tpu_torch.ops import kernels
+
+    info = kernels.corner_nms_launch_info(patch, r, dev)
+    lanes = int(np.prod(shape[:-2]))
+    grid = (-(-shape[-1] // info["tile_w"]), -(-shape[-2] // info["tile_h"]), lanes)
+    blocks = grid[0] * grid[1] * grid[2]
+    resident = info["blocks_per_sm"] * info["sms"]
+    record.update(grid=list(grid), blocks_per_sm=info["blocks_per_sm"],
+                  smem_bytes=info["smem_bytes"], waves=blocks / resident)
+    print(f"[{tag}] patch {patch} r {r}: {'specialised' if info['specialised'] else 'generic'} "
+          f"instance, tile {info['tile_w']}x{info['tile_h']}, {info['threads']} threads and "
+          f"{info['smem_bytes']} B of shared memory a block, {info['blocks_per_sm']} "
+          f"block(s) an SM on {info['sms']} SMs; grid {grid} = {blocks} blocks = "
+          f"{blocks / resident:.2f} waves")
 
 
 def _k1_parity(dev, record: dict, tag: str, cases, timed_shape) -> None:
@@ -172,15 +255,25 @@ def _k1_parity(dev, record: dict, tag: str, cases, timed_shape) -> None:
         print(f"[{tag}] {mode:10s} shape={shape} maxima={int(fw.sum())} "
               f"max_abs_err={float(diff.max()) if bool(fw.any()) else 0.0:.3g} ok")
     img = torch.as_tensor(rng.uniform(0, 255, timed_shape).astype(np.float32), device=dev)
+
+    def launch(mode="shi_tomasi", patch=7, r=8):
+        return kernels.corner_response_nms(img, mode, patch, 0.08, r, use_kernel=True)
+
+    _k1_launch_shape(dev, tag, record, timed_shape, 7, 8)
     ms, plain_ms = _interleaved(
-        lambda: kernels.corner_response_nms_plain(img, "shi_tomasi", 7, 0.08, 8),
-        lambda: kernels.corner_response_nms(img, "shi_tomasi", 7, 0.08, 8, use_kernel=True),
-    )
+        lambda: kernels.corner_response_nms_plain(img, "shi_tomasi", 7, 0.08, 8), launch)
+    device_ms = _device_ms(launch)
     # No single PyTorch call computes this function: library_ms stays null.
-    record.update(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None)
+    record.update(max_abs_err=worst, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                  library_ms=None)
     _k1_bound(record, timed_shape)
-    print(f"[{tag}] {timed_shape} shi_tomasi p7 r8: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {record['bound_ms']:.5f} ms ({record['bound_by']})")
+    print(f"[{tag}] {timed_shape} shi_tomasi p7 r8: kernel {ms:.4f} ms, on the device "
+          f"{device_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {record['bound_ms']:.5f} ms "
+          f"({record['bound_by']})")
+    # The other specialised instances and the generic one, device time only.
+    for mode, patch, r in K1_MODES[1:]:
+        t = _device_ms(lambda: launch(mode, patch, r))
+        print(f"[{tag}] {timed_shape} {mode} p{patch} r{r}: on the device {t:.4f} ms")
 
 
 def _k2_case(dev, rng, tag: str, img_shape, k: int, size: int, margin: int, timed: bool):
@@ -213,29 +306,132 @@ def _k2_case(dev, rng, tag: str, img_shape, k: int, size: int, margin: int, time
     return times
 
 
-def _k2_record(record: dict, times, img_shape, corners_shape, size: int) -> None:
-    # The plain version is itself ONE advanced-indexing call of PyTorch, so
-    # its time is also the library call's.
-    record.update(max_abs_err=0.0, ms=times[0], plain_ms=times[1], library_ms=times[1])
-    _k2_bound(record, img_shape, corners_shape, size)
+def _k2_single(record: dict, times, device_ms: float, img_shape, corners_shape,
+               size: int) -> None:
+    """One gather alone (extract_patches): its plain version is itself ONE
+    advanced-indexing call of PyTorch, so that time is also the library's."""
+    single = dict(size=size, ms=times[0], device_ms=device_ms, plain_ms=times[1],
+                  library_ms=times[1])
+    _k2_bound(single, img_shape, corners_shape, size)
+    record["single_gather"] = single
+
+
+def _pair_case(dev, rng, tag: str, img_shape, k: int, timed: bool):
+    """extract_patch_pairs against its plain version (pad + two plain
+    gathers), bit-identical: LK-like corners (window centres inside the
+    level), the level's own corners and edges, and corners far outside the
+    padded extent. Returns (ms, device_ms, plain_ms, two_launch_ms,
+    two_launch_device_ms) when timed."""
+    import torch
+    from vo_tpu_torch.ops import kernels
+
+    h, w = img_shape[-2:]
+    lead = tuple(img_shape[:-2])
+    pad, hp, wp = LK_PAD, h + 2 * LK_PAD, w + 2 * LK_PAD
+    prev = torch.as_tensor(rng.uniform(0, 255, img_shape).astype(np.float32), device=dev)
+    nxt = torch.as_tensor(rng.uniform(0, 255, img_shape).astype(np.float32), device=dev)
+
+    def corners(size: int):
+        half = LK_CORNER_OFFSET[size]
+        # Centres anywhere in the level (the LK caller's case) ...
+        cor = np.stack([rng.integers(0, w, lead + (k,)) + pad - half,
+                        rng.integers(0, h, lead + (k,)) + pad - half], -1)
+        # ... a quarter of them anywhere, out to 60 px beyond the padded extent,
+        far = np.stack([rng.integers(-60, wp + 60, lead + (k // 4,)),
+                        rng.integers(-60, hp + 60, lead + (k // 4,))], -1)
+        cor[..., : k // 4, :] = far
+        # ... and the extremes: centres on the level's corners, the padded
+        # extent's corners, one past them, and a negative start.
+        cor[..., -8:, :] = [
+            [pad - half, pad - half], [pad + w - 1 - half, pad + h - 1 - half],
+            [pad - half, pad + h - 1 - half], [pad + w - 1 - half, pad - half],
+            [0, 0], [wp - size, hp - size], [wp, hp], [-1, -1]]
+        return torch.as_tensor(cor.astype(np.int32), device=dev)
+
+    tcor, scor = corners(LK_TSIZE), corners(LK_SSIZE)
+
+    def pair():
+        return kernels.extract_patch_pairs(prev, nxt, tcor, scor, LK_TSIZE, LK_SSIZE, pad,
+                                           use_kernel=True)
+
+    def plain():
+        return kernels.extract_patch_pairs_plain(prev, nxt, tcor, scor, LK_TSIZE, LK_SSIZE,
+                                                 pad)
+
+    got, want = pair(), plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{tag} pair on {img_shape}: not bit-identical")
+    if not timed:
+        print(f"[{tag}] pair K={k} on {img_shape}: bit-identical")
+        return None
+    # The way of two launches: the levels padded once outside the timing, one
+    # single gather each (what a level cost before the pair, minus the pads).
+    prev_p, nxt_p = kernels.pad_replicate(prev, pad), kernels.pad_replicate(nxt, pad)
+
+    def two_launches():
+        return (kernels.extract_patches(prev_p, tcor, LK_TSIZE, use_kernel=True),
+                kernels.extract_patches(nxt_p, scor, LK_SSIZE, use_kernel=True))
+
+    two = two_launches()
+    if not (torch.equal(two[0], want[0]) and torch.equal(two[1], want[1])):
+        raise AssertionError(f"{tag} two single gathers on {img_shape}: not bit-identical")
+    ms, plain_ms = _interleaved(plain, pair)
+    two_ms = _time_ms(two_launches)
+    device_ms, two_device_ms = _device_ms(pair), _device_ms(two_launches)
+    print(f"[{tag}] pair K={k} on {img_shape}: bit-identical; one launch {ms:.4f} ms, on the "
+          f"device {device_ms:.4f} ms; two single launches (levels already padded) "
+          f"{two_ms:.4f} ms, on the device {two_device_ms:.4f} ms; plain (pad + two gathers) "
+          f"{plain_ms:.4f} ms")
+    return ms, device_ms, plain_ms, two_ms, two_device_ms
+
+
+def _pair_record(record: dict, times, img_shape, k: int) -> None:
+    # No single PyTorch call pads two levels and gathers from both:
+    # library_ms stays null (the single gather's is under "single_gather").
+    record.update(max_abs_err=0.0, ms=times[0], device_ms=times[1], plain_ms=times[2],
+                  library_ms=None, two_launch_ms=times[3], two_launch_device_ms=times[4])
+    _pair_bound(record, img_shape, k)
+    print(f"[pair] {img_shape} K={k}: bound {record['bound_ms']:.5f} ms ({record['bound_by']})")
 
 
 def phase_k2(dev, record: dict) -> None:
+    import torch
+    from vo_tpu_torch.ops import kernels
+
     rng = np.random.default_rng(7)
     shape, k = (516, 676), 1024
     times = {size: _k2_case(dev, rng, "k2", shape, k, size, 40, True) for size in (21, 35)}
     _k2_case(dev, rng, "k2", (3, 104, 384), 70, 17, 20, False)
-    _k2_record(record, times[35], shape, (k, 2), 35)
+    img = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32), device=dev)
+    cor = torch.as_tensor(rng.integers(0, 480, (k, 2)).astype(np.int32), device=dev)
+    dms = _device_ms(lambda: kernels.extract_patches(img, cor, 35, use_kernel=True))
+    _k2_single(record, times[35], dms, shape, (k, 2), 35)
+    # What the path launches: the pair, once per pyramid level.
+    timed = [_pair_case(dev, rng, "k2", lvl, k, lvl == LK_LEVEL_SHAPES[0])
+             for lvl in LK_LEVEL_SHAPES]
+    _pair_case(dev, rng, "k2", (3, 50, 70), 64, False)
+    _pair_record(record, timed[0], LK_LEVEL_SHAPES[0], k)
 
 
 def phase_k2b(dev, record: dict) -> None:
+    import torch
+    from vo_tpu_torch.ops import kernels
+
     rng = np.random.default_rng(11)
     b, k = MULTISEQ_LANES, MULTISEQ_CAPACITY
     shape = (b, 516, 676)  # level 0 of 480x640 with the LK pad of 18
     times = {size: _k2_case(dev, rng, "k2b", shape, k, size, 40, True) for size in (21, 35)}
     for size in (21, 35):  # the coarsest of the 4 levels, 60x80 + 2*18
         _k2_case(dev, rng, "k2b", (b, 96, 116), k, size, 40, True)
-    _k2_record(record, times[35], shape, (b, k, 2), 35)
+    img = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32), device=dev)
+    cor = torch.as_tensor(rng.integers(0, 480, (b, k, 2)).astype(np.int32), device=dev)
+    dms = _device_ms(lambda: kernels.extract_patches(img, cor, 35, use_kernel=True))
+    _k2_single(record, times[35], dms, shape, (b, k, 2), 35)
+    timed = [_pair_case(dev, rng, "k2b", (b,) + lvl, k,
+                        lvl in (LK_LEVEL_SHAPES[0], LK_LEVEL_SHAPES[-1]))
+             for lvl in LK_LEVEL_SHAPES]
+    _pair_record(record, timed[0], (b,) + LK_LEVEL_SHAPES[0], k)
 
 
 def phase_headline(dev, n_frames: int, records: dict) -> None:
@@ -306,7 +502,8 @@ def phase_headline(dev, n_frames: int, records: dict) -> None:
     fails = []
     if counts["corner_response_nms"] != steps + 1:
         fails.append(f"K1 launched {counts['corner_response_nms']} times, want {steps + 1}")
-    want_k2 = 2 * cfg.klt.pyramid_levels * (steps + 1)
+    # One launch per pyramid level does both gathers of the level.
+    want_k2 = cfg.klt.pyramid_levels * (steps + 1)
     if counts["extract_patches"] != want_k2:
         fails.append(f"K2 launched {counts['extract_patches']} times, want {want_k2}")
     if finite != steps or frozen:
@@ -359,9 +556,9 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
           f"{steps / dt:.2f} frames/s a lane")
     print(f"[multiseq] launches (bootstraps + rollout): {json.dumps(counts)}")
     want = {
-        "corner_response_nms": b, "extract_patches": 2 * levels * b,
+        "corner_response_nms": b, "extract_patches": levels * b,
         "corner_response_nms_batched": steps,
-        "extract_patches_batched": 2 * levels * steps,
+        "extract_patches_batched": levels * steps,
     }
     if counts != want:
         fails.append(f"launches {counts}, want {want}")
@@ -403,7 +600,7 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
     print(f"[multiseq] distorted lane: {dsteps} steps in {ddt:.2f} s = "
           f"{dsteps / ddt:.2f} frames/s; launches {json.dumps(dcounts)}")
     dwant = {
-        "corner_response_nms": dsteps + 1, "extract_patches": 2 * levels * (dsteps + 1),
+        "corner_response_nms": dsteps + 1, "extract_patches": levels * (dsteps + 1),
         "corner_response_nms_batched": 0, "extract_patches_batched": 0,
     }
     if dcounts != dwant:
@@ -474,8 +671,9 @@ def main(argv=None) -> int:
             replaces="vo_tpu/ops/pallas_kernels.py:464"),
     }
     for rec in records.values():
-        rec.update(launches=0, max_abs_err=None, ms=None, plain_ms=None,
-                   bound_ms=None, bound_by=None, library_ms=None)
+        rec.update(launches=0, max_abs_err=None, ms=None, device_ms=None, plain_ms=None,
+                   bound_ms=None, bound_by=None, library_ms=None,
+                   device_ms_by="CUDA graph replay")
     failed = []
 
     def run(name, fn, *a):
@@ -501,10 +699,12 @@ def main(argv=None) -> int:
         from vo_tpu_torch.ops import kernels
 
         floor = _time_ms(lambda: kernels.empty_launch(dev), reps=200)
-        print(f"[build] an empty launch through the same ctypes path: {floor:.4f} ms "
-              f"(the floor under every kernel time below)")
+        floor_dev = _device_ms(lambda: kernels.empty_launch(dev), reps=100)
+        print(f"[build] an empty launch through the same ctypes path: {floor:.4f} ms from "
+              f"the host (the floor under every `ms` below), {floor_dev:.4f} ms on the "
+              f"device in a replayed CUDA graph (the floor under every `device_ms`)")
         for rec in records.values():
-            rec["empty_launch_ms"] = floor
+            rec.update(empty_launch_ms=floor, empty_launch_device_ms=floor_dev)
 
     run("build", build)
     if "build" not in failed:

@@ -23,9 +23,15 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
+# (7, 8), (7, 5) and (9, 5) have instances of their own (both compiled in as
+# constants); every other (patch, r) runs the generic instance.
+K1_INSTANCES = [("shi_tomasi", 7, 8), ("harris", 7, 5), ("harris", 9, 5),
+                ("shi_tomasi", 5, 3), ("shi_tomasi", 15, 12), ("harris", 2, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,patch,nms_r", [("shi_tomasi", 7, 8), ("harris", 9, 5)])
-@pytest.mark.parametrize("shape", [(150, 260), (480, 640), (2, 64, 200)])
+@pytest.mark.parametrize("mode,patch,nms_r", K1_INSTANCES)
+@pytest.mark.parametrize("shape", [(150, 260), (480, 640), (2, 64, 200), (30, 40), (41, 65)])
 def test_k1_kernel_matches_plain(cuda_device, mode, patch, nms_r, shape):
     img = torch.as_tensor(RNG.uniform(0, 255, shape).astype(np.float32), device=cuda_device)
     # A launch over more than one image counts as the batched kernel's.
@@ -39,6 +45,88 @@ def test_k1_kernel_matches_plain(cuda_device, mode, patch, nms_r, shape):
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
     fw = torch.isfinite(want)
     torch.testing.assert_close(got[fw], want[fw], rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,patch,nms_r", K1_INSTANCES[:4])
+def test_k1_kernel_breaks_exact_ties_as_plain(cuda_device, mode, patch, nms_r):
+    """Flat regions (response 0 everywhere) and a periodic pattern whose
+    corners share one response value: the tie-break decides every maximum."""
+    img = RNG.uniform(0, 255, (200, 330)).astype(np.float32)
+    img[:70, :160] = 7.0
+    tile = np.zeros((12, 12), np.float32)
+    tile[3:9, 3:9] = 200.0
+    img[100:, 150:] = np.tile(tile, (9, 15))[:100, :180]
+    img = torch.as_tensor(img, device=cuda_device)
+    got = kernels.corner_response_nms(img, mode, patch, 0.08, nms_r, use_kernel=True)
+    want = kernels.corner_response_nms_plain(img, mode, patch, 0.08, nms_r)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fw = torch.isfinite(want)
+    torch.testing.assert_close(got[fw], want[fw], rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_k1_launch_info_and_unsupported_radius(cuda_device):
+    info = kernels.corner_nms_launch_info(7, 8, cuda_device)
+    assert info["specialised"] == 1 and info["blocks_per_sm"] >= 1
+    assert kernels.corner_nms_launch_info(5, 3, cuda_device)["specialised"] == 0
+    # A radius whose halo no block's shared memory holds is refused, not
+    # handed to the plain version.
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kernels.corner_response_nms(torch.zeros((64, 64), device=cuda_device),
+                                    "shi_tomasi", 7, 0.08, 40, use_kernel=True)
+
+
+def _pair_inputs(device, shape, k, tsize=21, ssize=35, pad=18):
+    """Levels and corners for `extract_patch_pairs`: LK-like corners, a
+    quarter anywhere out to 60 px beyond the padded extent, and the extremes."""
+    lead, (h, w) = tuple(shape[:-2]), shape[-2:]
+    hp, wp = h + 2 * pad, w + 2 * pad
+    prev = torch.as_tensor(RNG.uniform(0, 255, shape).astype(np.float32), device=device)
+    nxt = torch.as_tensor(RNG.uniform(0, 255, shape).astype(np.float32), device=device)
+
+    def corners(size, offset):
+        cor = np.stack([RNG.integers(0, w, lead + (k,)) + pad - offset,
+                        RNG.integers(0, h, lead + (k,)) + pad - offset], -1)
+        cor[..., : k // 4, :] = np.stack([RNG.integers(-60, wp + 60, lead + (k // 4,)),
+                                          RNG.integers(-60, hp + 60, lead + (k // 4,))], -1)
+        cor[..., -8:, :] = [
+            [pad - offset, pad - offset], [pad + w - 1 - offset, pad + h - 1 - offset],
+            [pad - offset, pad + h - 1 - offset], [pad + w - 1 - offset, pad - offset],
+            [0, 0], [wp - size, hp - size], [wp, hp], [-1, -1]]
+        return torch.as_tensor(cor.astype(np.int32), device=device)
+
+    return prev, nxt, corners(tsize, 10), corners(ssize, 16), tsize, ssize, pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [
+    ((480, 640), 1024), ((240, 320), 1024), ((120, 160), 1024), ((60, 80), 1024),
+    ((6, 480, 640), 512), ((6, 60, 80), 512), ((3, 20, 25), 40),
+])
+def test_pair_kernel_matches_plain(cuda_device, shape, k):
+    """Both gathers of an LK level in one launch, from the unpadded levels,
+    bit-identical to pad + two plain gathers at the four level shapes of a
+    640x480 frame, single and over six lanes, corners on the border and
+    beyond the padded extent."""
+    args = _pair_inputs(cuda_device, shape, k)
+    name = "extract_patches_batched" if len(shape) == 3 else "extract_patches"
+    before = dict(kernels.launch_counts)
+    got_t, got_s = kernels.extract_patch_pairs(*args)
+    assert kernels.launch_counts == {**before, name: before[name] + 1}  # ONE launch
+    want_t, want_s = kernels.extract_patch_pairs_plain(*args)
+    assert torch.equal(got_t, want_t) and torch.equal(got_s, want_s)
+    if len(shape) == 3:  # and lane b is the single launch on lane b
+        lane = kernels.extract_patch_pairs(*(a[1] for a in args[:4]), *args[4:])
+        assert torch.equal(lane[0], got_t[1]) and torch.equal(lane[1], got_s[1])
+
+
+@pytest.mark.cuda
+def test_pair_kernel_with_pad_zero_is_the_single_gather(cuda_device):
+    prev, nxt, tcor, scor, tsize, ssize, _ = _pair_inputs(cuda_device, (2, 96, 116), 200, pad=0)
+    got_t, got_s = kernels.extract_patch_pairs(prev, nxt, tcor, scor, tsize, ssize, 0)
+    assert torch.equal(got_t, kernels.extract_patches(prev, tcor, tsize))
+    assert torch.equal(got_s, kernels.extract_patches(nxt, scor, ssize))
 
 
 @pytest.mark.cuda
@@ -93,7 +181,8 @@ def test_k2b_kernel_matches_plain(cuda_device, size, shape):
 @pytest.mark.cuda
 def test_batched_step_launches_the_batched_kernels(cuda_device):
     """Two lanes through `batched_vo_step` on the card: one corner launch and
-    two gathers a pyramid level, all of them batched."""
+    one gather launch a pyramid level (the pair: template and search windows
+    together), all of them batched."""
     from vo_tpu_torch.models.pipeline import bootstrap
     from vo_tpu_torch.parallel.multiseq import batched_vo_step, stack_states
     from vo_tpu_torch.utils.config import VOConfig
@@ -111,7 +200,7 @@ def test_batched_step_launches_the_batched_kernels(cuda_device):
     assert out.pose.shape == (2, 4, 4) and bool(torch.isfinite(out.pose).all())
     assert kernels.launch_counts == {
         "corner_response_nms": 0, "corner_response_nms_batched": 1,
-        "extract_patches": 0, "extract_patches_batched": 2 * cfg.klt.pyramid_levels}
+        "extract_patches": 0, "extract_patches_batched": cfg.klt.pyramid_levels}
 
 
 @pytest.mark.cuda
@@ -126,3 +215,13 @@ def test_kernel_wrappers_reject_bad_input(cuda_device):
         kernels.extract_patches(img, cor, 5, use_kernel=True)
     with pytest.raises(ValueError, match="fit"):
         kernels.extract_patches(img, cor.int(), 41, use_kernel=True)
+    with pytest.raises(TypeError):
+        kernels.extract_patch_pairs(img, img, cor, cor.int(), 5, 9, 4, use_kernel=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.extract_patch_pairs(img, img.transpose(1, 2).transpose(1, 2)[:, :, ::2],
+                                    cor.int(), cor.int(), 5, 9, 4, use_kernel=True)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.extract_patch_pairs(img, img[:, :30].contiguous(), cor.int(), cor.int(),
+                                    5, 9, 4, use_kernel=True)
+    with pytest.raises(ValueError, match="fit"):
+        kernels.extract_patch_pairs(img, img, cor.int(), cor.int(), 5, 49, 4, use_kernel=True)

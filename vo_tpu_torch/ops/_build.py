@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (vo_tpu_torch/csrc/*.cu).
 
-All sources compile with nvcc into ONE shared library with a plain C
+Each source compiles with its own nvcc process (all started together) into
+an object file, and one link makes ONE shared library with a plain C
 interface, loaded with ctypes — no PyTorch headers, so a cold build takes
 seconds. The library lands in `vo_tpu_torch/build/<hash>/` (git-ignored),
 keyed by a hash of the sources and flags: a changed source rebuilds, an
@@ -30,7 +31,7 @@ LIB_NAME = "libvo_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,8 +40,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (imgs, out, B, H, W, mode, patch, kappa, nms_radius, stream)
     "vo_corner_response_nms": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P),
+    # (patch, nms_radius, info[7]) — the launch shape of that instance
+    "vo_corner_nms_launch_info": (_I, _I, _P),
     # (imgs, corners, out, B, H, W, K, size, stream)
     "vo_extract_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (prev, next, tcorners, scorners, tout, sout, B, H, W, K, tsize, ssize,
+    #  pad, stream) — both gathers of one LK level in one launch
+    "vo_extract_patch_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (stream) — an empty kernel, the launch-latency floor
     "vo_empty_launch": (_P,),
 }
@@ -50,8 +56,8 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def build_dir(extra_flags: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -68,35 +74,58 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def build() -> Path:
+def build(extra_flags: tuple[str, ...] = ()) -> Path:
     """Compile the sources if this hash has no library yet; returns its path.
-    The compiler's report (registers, shared memory, spills) is kept in
-    build.log beside the library."""
-    out_dir = build_dir()
+    `extra_flags` (e.g. a -D that retiles a kernel for a tuning run) are part
+    of the hash, so each set of flags has a library of its own. The
+    compiler's report (registers, shared memory, spills) is kept in build.log
+    beside the library."""
+    out_dir = build_dir(extra_flags)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name, then rename: a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    # Work under private names, then rename: a concurrent process never loads
+    # a half-written library.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        jobs = []
+        for src in sources():
+            obj = str(Path(tmp) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            text, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(text)
+        if not failed:
+            so = str(Path(tmp) / LIB_NAME)
+            cmd = [nvcc, "-shared", "-o", so, *(obj for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-4000:])
+        os.replace(so, lib)
+    return lib
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and set its argtypes."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), argtypes set."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    return load(build())

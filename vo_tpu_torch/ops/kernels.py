@@ -7,10 +7,14 @@ by ops/_build.py and launched through ctypes on PyTorch's current stream,
 compute all four:
 
   K1 / K1b corner_response_nms — csrc/corner_nms.cu   (detection, once per step)
-  K2 / K2b extract_patches     — csrc/patch_gather.cu (LK patch gather, 8 per step)
+  K2 / K2b extract_patches     — csrc/patch_gather.cu (LK patch gathers, one
+           extract_patch_pairs   launch per pyramid level, 4 per step)
 
 Each kernel takes a leading batch dimension (the lane is a grid dimension),
-so B lanes are ONE launch, not B.
+so B lanes are ONE launch, not B. The gather kernel also takes two jobs, so
+the template and the search windows of one LK level are ONE launch
+(`extract_patch_pairs`); `extract_patches` launches the same kernel with
+one job.
 
 Beside each kernel sits its plain PyTorch version — the CPU path and the
 kernel's oracle. A wrapper dispatches on the tensor's device: a CPU tensor
@@ -21,12 +25,22 @@ fallback). `use_kernel=False` asks for the plain version on purpose (the
 Each wrapper adds one to `launch_counts[name]` where it launches its kernel
 and nowhere else, so a run can prove which path it took. A launch over more
 than one lane counts under the `_batched` name (K1b, K2b), any other under
-the plain name (K1, K2).
+the plain name (K1, K2); a launch of the pair counts once, under the
+gather's names.
+
+On an H100 every kernel's byte bound lies below what one launch through
+this ctypes path costs the host, so the wrappers keep their own work small:
+the checks are one boolean chain (the named errors are raised only after it
+fails), no view of an input is made for the sake of a check, and the device
+context is entered only for a tensor that is not on the current device.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+import torch.nn.functional as F
 
 from vo_tpu_torch.ops.harris import (
     harris_response,
@@ -59,6 +73,10 @@ def _wants_kernel(t: torch.Tensor, use_kernel: bool | None) -> bool:
     return False
 
 
+def _ok(t: torch.Tensor, dtype: torch.dtype, ndim: int) -> bool:
+    return t.is_cuda and t.dtype == dtype and t.ndim == ndim and t.is_contiguous()
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -75,6 +93,18 @@ def _raise_on_error(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")
 
 
+def _launch(device: torch.device, kernel: str, fn, *args) -> None:
+    """Call the C launcher `fn(*args, stream)` on `device`'s current stream
+    and raise if the launch was refused. The device context is entered only
+    when `device` is not already the current one."""
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, kernel)
+
+
 def empty_launch(device: torch.device) -> None:
     """Launch the empty kernel (csrc/empty_launch.cu) on `device`'s current
     stream: what a launch through this module's ctypes path costs with no
@@ -82,10 +112,7 @@ def empty_launch(device: torch.device) -> None:
     has no launch count."""
     from vo_tpu_torch.ops._build import library
 
-    lib = library()
-    with torch.cuda.device(device):
-        err = lib.vo_empty_launch(torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error(err, "empty_launch")
+    _launch(torch.device(device), "empty_launch", library().vo_empty_launch)
 
 
 # ---------------------------------------------------------------------------
@@ -122,36 +149,50 @@ def corner_response_nms(
     """Fused corner response + NMS masking; (H, W) or (B, H, W) f32.
 
     Replaces vo_tpu/ops/pallas_kernels.py::corner_response_nms (:196) and
-    ::corner_response_nms_batched (:257). On the card the whole ~8-pass
-    stencil chain runs as one kernel from one HBM read of the image
-    (csrc/corner_nms.cu: a 32x32 tile plus a 2r + patch/2 + 1 halo per
-    block in ~94 KB of shared memory); what bounds it is the shared-memory
-    passes and block barriers, not HBM bytes.
+    ::corner_response_nms_batched (:257). On the card the whole stencil
+    chain runs as one kernel from one HBM read of the image
+    (csrc/corner_nms.cu: a 512-thread block per 64x40 tile plus a
+    2r + patch/2 + 1 halo in ~123 KB of shared memory, seven passes; 640x480
+    is 120 blocks, one wave). The pairs the configuration uses (patch 7
+    with r 8 or 5) and the functions' own defaults (9, 5) have instances
+    compiled with both as constants; any other pair runs the generic,
+    slower instance of the same kernel. What bounds it is the latency of
+    the shared-memory passes and block barriers, not HBM bytes.
     """
     if not _wants_kernel(img, use_kernel):
         return corner_response_nms_plain(img, mode, patch_size, kappa, nms_radius)
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {sorted(_MODES)}, got {mode!r}")
-    batched = img.ndim == 3
-    imgs = img if batched else img.unsqueeze(0)
-    _check(imgs, "img", torch.float32, 3)
-    b, h, w = imgs.shape
+    if not (img.ndim in (2, 3) and _ok(img, torch.float32, img.ndim)):
+        _check(img, "img", torch.float32, 3 if img.ndim != 2 else 2)
+    h, w = img.shape[-2:]
+    b = img.shape[0] if img.ndim == 3 else 1
     if h * w > 1 << 24:
         # The NMS tie-break pools flat indices as f32, exact up to 2^24.
         raise ValueError(f"a {h}x{w} image has more than 2^24 pixels")
-    out = torch.empty_like(imgs)
+    out = torch.empty_like(img)
     from vo_tpu_torch.ops._build import library
 
-    lib = library()
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        err = lib.vo_corner_response_nms(
-            imgs.data_ptr(), out.data_ptr(), b, h, w, _MODES[mode],
-            patch_size, float(kappa), nms_radius, stream,
-        )
-    _raise_on_error(err, "corner_response_nms")
+    _launch(img.device, "corner_response_nms", library().vo_corner_response_nms,
+            img.data_ptr(), out.data_ptr(), b, h, w, _MODES[mode],
+            patch_size, float(kappa), nms_radius)
     launch_counts["corner_response_nms_batched" if b > 1 else "corner_response_nms"] += 1
-    return out if batched else out[0]
+    return out
+
+
+def corner_nms_launch_info(patch_size: int, nms_radius: int, device: torch.device) -> dict:
+    """How the corner kernel launches for (patch_size, nms_radius) on
+    `device`: whether that pair has a specialised instance, the tile, the
+    threads and shared memory of a block, the blocks an SM can hold
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count."""
+    from vo_tpu_torch.ops._build import library
+
+    info = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = library().vo_corner_nms_launch_info(patch_size, nms_radius, info)
+    _raise_on_error(err, "corner_nms_launch_info")
+    keys = ("specialised", "tile_w", "tile_h", "threads", "smem_bytes", "blocks_per_sm", "sms")
+    return dict(zip(keys, info))
 
 
 # ---------------------------------------------------------------------------
@@ -194,34 +235,127 @@ def extract_patches(
 
     Replaces vo_tpu/ops/pallas_kernels.py::extract_patches_aligned (:387) and
     ::extract_patches_aligned_batched (:464). On the card it is one block per
-    keypoint copying size^2 floats (csrc/patch_gather.cu), bit-identical to
-    the clamped gather; at the LK shapes it moves a few MB, so launch latency
-    bounds it.
+    keypoint copying size^2 floats (csrc/patch_gather.cu, the kernel that
+    `extract_patch_pairs` launches with two jobs), bit-identical to the
+    clamped gather. It moves a few MB, microseconds at HBM rate: what it
+    costs is the launch, on the host.
     """
     if not _wants_kernel(img, use_kernel):
         return extract_patches_plain(img, corners, size)
-    batched = img.ndim == 3
-    imgs = img if batched else img.unsqueeze(0)
-    cor = corners if batched else corners.unsqueeze(0)
-    _check(imgs, "img", torch.float32, 3)
-    _check(cor, "corners", torch.int32, 3)
-    b, h, w = imgs.shape
-    if cor.shape[0] != b or cor.shape[2] != 2:
-        raise ValueError(f"corners must be ({b}, K, 2), got {tuple(cor.shape)}")
-    if cor.device != imgs.device:
+    nd = img.ndim
+    if not (nd in (2, 3) and _ok(img, torch.float32, nd) and _ok(corners, torch.int32, nd)):
+        nd = 2 if nd == 2 else 3
+        _check(img, "img", torch.float32, nd)
+        _check(corners, "corners", torch.int32, nd)
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    b = lead[0] if lead else 1
+    k = corners.shape[-2]
+    if corners.shape != lead + (k, 2):
+        raise ValueError(f"corners must be {tuple(lead) + ('K', 2)}, got {tuple(corners.shape)}")
+    if corners.device != img.device:
         raise ValueError("img and corners must be on the same device")
     if not 0 < size <= min(h, w):
         raise ValueError(f"patch size {size} does not fit a {h}x{w} image")
-    k = cor.shape[1]
-    out = torch.empty((b, k, size, size), dtype=torch.float32, device=imgs.device)
+    out = torch.empty(lead + (k, size, size), dtype=torch.float32, device=img.device)
     from vo_tpu_torch.ops._build import library
 
-    lib = library()
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        err = lib.vo_extract_patches(
-            imgs.data_ptr(), cor.data_ptr(), out.data_ptr(), b, h, w, k, size, stream,
-        )
-    _raise_on_error(err, "extract_patches")
+    _launch(img.device, "extract_patches", library().vo_extract_patches,
+            img.data_ptr(), corners.data_ptr(), out.data_ptr(), b, h, w, k, size)
     launch_counts["extract_patches_batched" if b > 1 else "extract_patches"] += 1
-    return out if batched else out[0]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2 as the LK caller uses it — both gathers of a level, no padded copies
+# ---------------------------------------------------------------------------
+
+def pad_replicate(img: torch.Tensor, pad: int) -> torch.Tensor:
+    """Edge-replicate padding of the last two dims of (H, W) or (B, H, W)
+    (F.pad's replicate mode wants two leading dims of its own)."""
+    h, w = img.shape[-2:]
+    out = F.pad(img.reshape((1, -1, h, w)), (pad,) * 4, mode="replicate")
+    return out.reshape(img.shape[:-2] + (h + 2 * pad, w + 2 * pad))
+
+
+def extract_patch_pairs_plain(
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    tcorner: torch.Tensor,
+    scorner: torch.Tensor,
+    tsize: int,
+    ssize: int,
+    pad: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's way: edge-replicate both levels by `pad`, then gather
+    tsize windows of `prev` at tcorner and ssize windows of `nxt` at scorner
+    (corners in padded coordinates, dynamic_slice semantics)."""
+    return (extract_patches_plain(pad_replicate(prev, pad), tcorner, tsize),
+            extract_patches_plain(pad_replicate(nxt, pad), scorner, ssize))
+
+
+def extract_patch_pairs(
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    tcorner: torch.Tensor,
+    scorner: torch.Tensor,
+    tsize: int,
+    ssize: int,
+    pad: int,
+    use_kernel: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both patch gathers of one Lucas-Kanade level: (H, W) levels + (K, 2)
+    int32 corners -> ((K, tsize, tsize), (K, ssize, ssize)), or (B, H, W) +
+    (B, K, 2) -> ((B, K, tsize, tsize), (B, K, ssize, ssize)).
+
+    `prev` and `nxt` are the UNPADDED levels; the corners are (x, y) in the
+    coordinates of the level edge-replicated by `pad` on every side, as the
+    reference computes them. The result is what gathering from those padded
+    copies returns (`extract_patch_pairs_plain`): pixel (y, x) of the padded
+    level is pixel (clamp(y - pad, 0, H-1), clamp(x - pad, 0, W-1)) of the
+    level. On the card that is ONE launch of csrc/patch_gather.cu for both
+    gathers of all keypoints of all lanes, each thread clamping its own
+    address, and the padded copies are never made.
+
+    Precondition of the LK caller, not needed for the identity: with pad =
+    radius + MARGIN + 2 and centres clamped into the image, every window lies
+    inside the padded extent, so no start is clamped. Outside it, kernel and
+    plain version both follow lax.dynamic_slice on the padded extent (a
+    negative start counts from the end, then the start is clamped), so they
+    agree bit for bit for every corner.
+    """
+    if not _wants_kernel(prev, use_kernel):
+        return extract_patch_pairs_plain(prev, nxt, tcorner, scorner, tsize, ssize, pad)
+    nd = prev.ndim
+    if not (nd in (2, 3) and _ok(prev, torch.float32, nd) and _ok(nxt, torch.float32, nd)
+            and _ok(tcorner, torch.int32, nd) and _ok(scorner, torch.int32, nd)):
+        nd = 2 if nd == 2 else 3
+        _check(prev, "prev", torch.float32, nd)
+        _check(nxt, "nxt", torch.float32, nd)
+        _check(tcorner, "tcorner", torch.int32, nd)
+        _check(scorner, "scorner", torch.int32, nd)
+    lead, (h, w) = prev.shape[:-2], prev.shape[-2:]
+    b = lead[0] if lead else 1
+    k = tcorner.shape[-2]
+    if nxt.shape != prev.shape:
+        raise ValueError(f"prev {tuple(prev.shape)} and nxt {tuple(nxt.shape)} differ in shape")
+    if tcorner.shape != lead + (k, 2) or scorner.shape != tcorner.shape:
+        raise ValueError(f"corners must both be {tuple(lead) + ('K', 2)}, got "
+                         f"{tuple(tcorner.shape)} and {tuple(scorner.shape)}")
+    dev = prev.device
+    if not (nxt.device == dev and tcorner.device == dev and scorner.device == dev):
+        raise ValueError("levels and corners must be on the same device")
+    if pad < 0 or not 0 < min(tsize, ssize) <= max(tsize, ssize) <= min(h, w) + 2 * pad:
+        raise ValueError(f"patch sizes {tsize}, {ssize} do not fit a {h}x{w} level "
+                         f"padded by {pad}")
+    # Two allocations, not one carved in two: an allocation dispatches one
+    # op, a carved view two more, and the host's dispatch is what a launch
+    # costs here.
+    tout = torch.empty(lead + (k, tsize, tsize), dtype=torch.float32, device=dev)
+    sout = torch.empty(lead + (k, ssize, ssize), dtype=torch.float32, device=dev)
+    from vo_tpu_torch.ops._build import library
+
+    _launch(dev, "extract_patch_pairs", library().vo_extract_patch_pairs,
+            prev.data_ptr(), nxt.data_ptr(), tcorner.data_ptr(), scorner.data_ptr(),
+            tout.data_ptr(), sout.data_ptr(), b, h, w, k, tsize, ssize, pad)
+    launch_counts["extract_patches_batched" if b > 1 else "extract_patches"] += 1
+    return tout, sout

@@ -1,9 +1,12 @@
 """Pyramidal Lucas-Kanade optical flow, batched over keypoints — port of
 vo_tpu/ops/klt.py.
 
-Each keypoint performs ONE contiguous patch load per pyramid level and image
-(the K2 patch-gather kernel on the card, ops/kernels.py); every bilinear
-window resample after that — template setup and all solver iterations — is
+Each keypoint performs ONE contiguous patch load per pyramid level and image;
+on the card both loads of a level, for all keypoints of all lanes, are ONE
+launch of the K2 patch-gather kernel (ops/kernels.py `extract_patch_pairs`),
+which reads the levels as they are: the reference's edge-replicated copies of
+each level exist only in the plain version. Every bilinear window resample
+after that — template setup and all solver iterations — is
 two small batched matmuls with tent-function selection matrices:
 
     window = W_y(p) @ patch @ W_x(p)^T,   W[i, j] = max(0, 1 - |j - (p+i)|)
@@ -15,8 +18,8 @@ bit, and the fixed trip count needs no host sync. The reference's TPU-only
 
 Every function takes (K, 2) points with (H, W) levels or, with a leading
 lane axis, (B, K, 2) points with (B, H, W) levels; lane b of the batched
-call is the unbatched call on lane b, and each patch gather of a batch is
-ONE launch of the kernel (K2b).
+call is the unbatched call on lane b, and the patch gathers of a level of a
+batch are ONE launch of the kernel (K2b).
 """
 
 from __future__ import annotations
@@ -24,9 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
-import torch.nn.functional as F
 
-from vo_tpu_torch.ops.kernels import extract_patches
+from vo_tpu_torch.ops.kernels import extract_patch_pairs
 
 # Max |d| within one level before window samples clamp at the patch border.
 MARGIN = 8
@@ -36,22 +38,6 @@ class TrackResult(NamedTuple):
     xy: torch.Tensor  # (..., K, 2) tracked positions in the next frame
     status: torch.Tensor  # (..., K) bool — converged, well-conditioned, in-bounds
     err: torch.Tensor  # (..., K) mean |I_next - I_prev| over the window
-
-
-def _extract_patches(
-    img: torch.Tensor, corner: torch.Tensor, size: int, use_pallas: bool | None = None
-) -> torch.Tensor:
-    """(..., K, size, size) contiguous patches at integer corners (..., K, 2)
-    int32."""
-    return extract_patches(img, corner, size, use_kernel=use_pallas)
-
-
-def _pad_replicate(img: torch.Tensor, pad: int) -> torch.Tensor:
-    """Edge-replicate padding of the last two dims of (H, W) or (B, H, W)
-    (F.pad's replicate mode wants two leading dims of its own)."""
-    h, w = img.shape[-2:]
-    out = F.pad(img.reshape((1, -1, h, w)), (pad,) * 4, mode="replicate")
-    return out.reshape(img.shape[:-2] + (h + 2 * pad, w + 2 * pad))
 
 
 def _sel(pos: torch.Tensor, out_size: int, in_size: int) -> torch.Tensor:
@@ -92,19 +78,26 @@ def _lk_level(
     (flow (..., K, 2), conditioned (..., K) bool, err (..., K))."""
     h, w = prev_img.shape[-2:]
     win = 2 * radius + 1
-    # Edge-replicate padding keeps every patch corner below in range.
+    # Corners are in the coordinates of the level edge-replicated by `pad`,
+    # which keeps every window below inside that extent. The padded levels
+    # themselves are built only by the plain version of the gather.
     pad = radius + MARGIN + 2
-    prev_p = _pad_replicate(prev_img, pad)
-    next_p = _pad_replicate(next_img, pad)
     zero = torch.zeros(2, dtype=torch.float32, device=pt_prev.device)
     bound = torch.tensor([w - 1.0, h - 1.0], dtype=torch.float32, device=pt_prev.device)
 
-    # ---- Template + gradients: one patch, one (win+2) resample ------------
+    # ---- Both patch loads of the level: the template around pt_prev in the
+    # previous image, the search patch around pt_prev + guess in the next ---
     tp_size = win + 4
     pt_c = torch.clamp(pt_prev, zero, bound)
     base = torch.floor(pt_c)
     tcorner = base.to(torch.int32) - radius - 2 + pad
-    tpatch = _extract_patches(prev_p, tcorner, tp_size, use_pallas)
+    sp_size = win + 2 * MARGIN + 2
+    center0 = torch.clamp(pt_prev + guess, zero, bound)
+    scorner = torch.floor(center0).to(torch.int32) - radius - MARGIN + pad
+    tpatch, spatch = extract_patch_pairs(
+        prev_img, next_img, tcorner, scorner, tp_size, sp_size, pad, use_kernel=use_pallas)
+
+    # ---- Template + gradients: one (win+2) resample ------------------------
     tfrac = pt_c - base
     T_ext = _resample(tpatch, tfrac + 1.0, win + 2)  # (..., K, win+2, win+2)
     T = T_ext[..., 1:-1, 1:-1]
@@ -122,11 +115,7 @@ def _lk_level(
     conditioned = (min_eig / (win * win) > min_eig_threshold) & (det.abs() > 1e-8)
     inv_det = torch.where(det.abs() > 1e-8, 1.0 / det, 0.0)
 
-    # ---- Search patch in the next image around pt_prev + guess ------------
-    sp_size = win + 2 * MARGIN + 2
-    center0 = torch.clamp(pt_prev + guess, zero, bound)
-    scorner = torch.floor(center0).to(torch.int32) - radius - MARGIN + pad
-    spatch = _extract_patches(next_p, scorner, sp_size, use_pallas)
+    # ---- Search window positions inside the search patch ------------------
     s_base = (center0 - radius) + pad - scorner.to(torch.float32)  # (..., K, 2)
     pos_hi = float(sp_size - win - 1) - 1e-4
 

@@ -1,0 +1,411 @@
+#!/usr/bin/env python
+"""Command-line entry point of the PyTorch/CUDA VO pipeline — the twin of
+`run_vo.py` over `vo_tpu_torch`.
+
+Headless and typed, flag for flag as `run_vo.py`: the device owns the
+per-frame step; the host collects poses and stats, registers pose-graph
+keyframes, writes checkpoints, and reports ATE/RPE against exact ground
+truth at the end. The synthetic city is rendered on the device (no files).
+
+Examples:
+  python run_vo_torch.py --dataset synthetic --quiet
+  python run_vo_torch.py --tracker harris --max-frames 150
+  python run_vo_torch.py --spec loop --pose-graph --chunk 16 --quiet
+  python run_vo_torch.py --device cpu --max-frames 12 --capacity 128
+
+Runs on `cuda` unless `--device cpu` is given, and exits 2 without a GPU
+otherwise. Not ported (each exits 2 and names its ROADMAP item): the disk
+datasets (`--dataset kitti|malaga|parking`) and the matplotlib figures
+(`--viz-dir`, `--trajectory-pdf`, `--map-pdf`, `--landmarks-pdf`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import Any, Callable, NamedTuple
+
+TAG = "[vo_tpu_torch]"
+BOOTSTRAP_SEED = 2023
+
+_UNPORTED_DATASETS = (
+    "--dataset {name} is not ported: the disk loaders (kitti, malaga, parking) "
+    "wait for their image data (ROADMAP Queue 1, 'Still to port': disk loaders); "
+    "use --dataset synthetic"
+)
+_UNPORTED_FIGURES = (
+    "{flag} is not ported: the matplotlib figures of utils/viz.py wait for "
+    "their packages (ROADMAP Queue 1, 'Still to port': figures)"
+)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=" ".join(__doc__.split("\n")[:2]))
+    p.add_argument("--dataset", choices=["kitti", "malaga", "parking", "synthetic"],
+                   default="synthetic")
+    p.add_argument("--spec", choices=["default", "loop"], default="default",
+                   help="synthetic sequence: the 600-frame city with two turns, or "
+                        "the 1,169-frame closed circuit with a revisit")
+    p.add_argument("--max-frames", type=int, default=0, help="0 = all")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default; exits 2 without a GPU) or cpu, only when asked")
+    p.add_argument("--capacity", type=int, default=1024)
+    p.add_argument("--tracker", choices=["klt", "harris", "sift"], default="klt",
+                   help="front-end mode (ref tracker.py dispatch)")
+    p.add_argument("--detector", choices=["shi_tomasi", "harris"], default="shi_tomasi")
+    p.add_argument("--no-ba", action="store_true", help="disable windowed BA")
+    # None -> defer to the BAConfig dataclass defaults (utils/config.py), so
+    # tuning the library default cannot silently diverge from the CLI.
+    p.add_argument("--ba-window", type=int, default=None)
+    p.add_argument("--ba-every", type=int, default=None)
+    p.add_argument("--kf-mode", choices=["adaptive", "every"], default="every",
+                   help="keyframe policy: fixed cadence (every --ba-every frames) or "
+                        "motion/covisibility-gated (adaptive: stop-and-go footage)")
+    p.add_argument("--checkpoint", default="", help="write checkpoints here (.npz)")
+    p.add_argument("--checkpoint-every", type=int, default=100)
+    p.add_argument("--resume", default="", help="resume from a checkpoint (.npz)")
+    p.add_argument("--viz-dir", default="", help="(not ported)")
+    p.add_argument("--trajectory-pdf", default="", help="(not ported)")
+    p.add_argument("--map-pdf", default="", help="(not ported)")
+    p.add_argument("--landmarks-pdf", default="", help="(not ported)")
+    p.add_argument("--save-npz", default="", help="save poses/stats to .npz")
+    p.add_argument("--profile-dir", default="", help="torch.profiler trace directory")
+    p.add_argument("--debug-validate", action="store_true",
+                   help="run the feature-table invariant validator every frame")
+    p.add_argument("--chunk", type=int, default=1,
+                   help="frames per `vo_rollout` chunk (1 = per-frame stepping; >1 = "
+                        "one fetch per chunk)")
+    p.add_argument("--no-kernels", action="store_true",
+                   help="route detection/LK through the plain PyTorch chains instead "
+                        "of the CUDA kernels (fault isolation)")
+    p.add_argument("--pose-graph", action="store_true",
+                   help="long-term pose-graph back-end with appearance loop closure "
+                        "(keyframe DB + Sim(3) graph GN); the global trajectory is "
+                        "re-anchored after optimization")
+    p.add_argument("--pg-every", type=int, default=8,
+                   help="frames between pose-graph keyframes")
+    p.add_argument("--pg-nodes", type=int, default=256,
+                   help="pose-graph capacity; older keyframes are culled by "
+                        "chain-span score when full")
+    p.add_argument("--pg-min-frame-gap", type=int, default=100)
+    # 0.95: on the loop circuit genuine revisit edges retrieve at >= 0.978
+    # while a false candidate that survives geometric verification retrieves
+    # at 0.925, and one false Sim(3) edge bends the whole trajectory.
+    p.add_argument("--pg-min-similarity", type=float, default=0.95)
+    p.add_argument("--quiet", action="store_true")
+    return p.parse_args(argv)
+
+
+class Run(NamedTuple):
+    """What a run leaves behind besides its JSON line."""
+
+    result: dict  # the final JSON line's object
+    poses: Any  # (F, 4, 4) numpy, pose-graph corrected where a back-end ran
+    poses_raw: Any  # (F, 4, 4) before the pose graph, or None
+    frame_ids: list
+    stats: list  # one dict per step
+    state: Any  # the final VOState
+    backend: Any  # the PoseGraphBackend, or None
+    seq: Any  # the rendered Sequence
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
+    """Drive one sequence as `args` (a `parse_args` namespace) says. Returns
+    (exit code, Run). `observer(frame, state, backend)` is called after each
+    chunk (each frame at --chunk 1), after the pose-graph keyframe and the
+    checkpoint of that frame."""
+    import numpy as np
+    import torch
+
+    if args.dataset != "synthetic":
+        print(_UNPORTED_DATASETS.format(name=args.dataset), file=sys.stderr)
+        return 2, None
+    for flag in ("viz_dir", "trajectory_pdf", "map_pdf", "landmarks_pdf"):
+        if getattr(args, flag):
+            print(_UNPORTED_FIGURES.format(flag="--" + flag.replace("_", "-")),
+                  file=sys.stderr)
+            return 2, None
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("run_vo_torch: no CUDA device visible (pass --device cpu to run on "
+              "the CPU)", file=sys.stderr)
+        return 2, None
+    dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
+
+    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
+    from vo_tpu_torch.models.pipeline import StepOutput, bootstrap, vo_rollout, vo_step
+    from vo_tpu_torch.utils import viz
+    from vo_tpu_torch.utils.checkpoint import load_backend, load_checkpoint, save_checkpoint
+    from vo_tpu_torch.utils.config import BAConfig, DetectorConfig, KLTConfig, VOConfig
+
+    spec = synthetic.LOOP_SPEC if args.spec == "loop" else synthetic.DEFAULT_SPEC
+    n_frames = spec.num_frames if args.max_frames <= 0 else min(args.max_frames,
+                                                                spec.num_frames)
+    cfg = VOConfig(
+        capacity=args.capacity,
+        tracker=args.tracker,
+        detector=DetectorConfig(
+            method=args.detector,
+            use_pallas=False if args.no_kernels else None,
+        ),
+        klt=KLTConfig(use_pallas=False if args.no_kernels else None),
+        ba=BAConfig(enabled=not args.no_ba, keyframe_mode=args.kf_mode,
+                    **{k: v for k, v in (("window", args.ba_window),
+                                         ("keyframe_every", args.ba_every))
+                       if v is not None}),
+    )
+    gap = cfg.bootstrap.frame_gap
+    if n_frames <= gap:
+        print(f"need more than {gap} frames, got {n_frames}", file=sys.stderr)
+        return 2, None
+
+    t_render = time.time()
+    seq = synthetic.render_sequence(spec, dev, n_frames)
+    _sync(dev)
+    K = seq.K
+    dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"{TAG} {args.dataset}/{args.spec}: {n_frames} frames rendered in "
+          f"{time.time() - t_render:.1f}s, device={dev_name}")
+
+    profiler = None
+    if args.profile_dir:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
+
+    t_start = time.time()
+    if args.resume:
+        state, cfg, traj, fids = load_checkpoint(args.resume, dev)
+        frame_ids = [int(f) for f in fids] if fids is not None else []
+        poses = list(traj) if traj is not None else []
+        start_frame = int(state.frame_idx) + 1
+        print(f"{TAG} resumed from {args.resume} at frame {start_frame - 1}")
+    else:
+        state, out = bootstrap(
+            seq.frames[0], seq.frames[gap], K, cfg,
+            torch.Generator(device=dev).manual_seed(BOOTSTRAP_SEED),
+        )
+        _sync(dev)
+        t_boot = time.time() - t_start
+        print(
+            f"{TAG} bootstrap(0,{gap}) in {t_boot:.1f}s: "
+            f"tracked={int(out.num_tracked)} landmarks={int(out.num_triangulated)} "
+            f"ok={bool(out.pose_ok)}"
+        )
+        frame_ids = [0, gap]
+        poses = [np.eye(4, dtype=np.float32), out.pose.cpu().numpy()]
+        start_frame = gap + 1
+    stats: list[dict] = []
+    t_loop = time.time()
+    first_time = 0.0
+    first_i = start_frame
+    fps_meter = viz.FpsMeter()
+    chunk = max(1, args.chunk)
+    if chunk > 1 and args.debug_validate:
+        print(f"{TAG} --debug-validate needs per-frame stepping; falling back to "
+              "--chunk 1")
+        chunk = 1
+
+    backend = None
+    next_pg = start_frame
+    if args.pose_graph:
+        from vo_tpu_torch.models.backend import BackendConfig, PoseGraphBackend
+
+        if args.resume:
+            backend = load_backend(args.resume, dev)
+            if backend is not None:
+                last_kf = int(backend.graph.node_frame.max())
+                next_pg = max(start_frame, last_kf + args.pg_every)
+                print(
+                    f"{TAG} pose-graph back-end resumed: "
+                    f"{backend.n_nodes} nodes, {backend.n_loops} loop(s)"
+                )
+        if backend is None:
+            backend = PoseGraphBackend(
+                K,
+                BackendConfig(
+                    nodes=args.pg_nodes,
+                    min_frame_gap=args.pg_min_frame_gap,
+                    min_similarity=args.pg_min_similarity,
+                ),
+            )
+    pg_seconds = 0.0
+
+    def maybe_pose_graph(i):
+        """Register frame i as a pose-graph keyframe if its cadence is due
+        (off the per-frame path, once per pg_every frames)."""
+        nonlocal next_pg, pg_seconds
+        if backend is None or i < next_pg:
+            return
+        next_pg = i + args.pg_every
+        t0 = time.time()
+        info = backend.on_keyframe(seq.frames[i], state.pose, state.table, i)
+        pg_seconds += time.time() - t0
+        if info and not args.quiet:
+            print(
+                f"{TAG} LOOP closed: frame {info['frame']} <-> "
+                f"{info['matched_frame']} (sim {info['similarity']:.2f}, "
+                f"{info['inliers']} inliers)"
+            )
+
+    def record(i, out, dt):
+        """`out`: one frame's StepOutput as numpy values."""
+        frame_ids.append(i)
+        poses.append(np.asarray(out.pose))
+        stats.append(
+            dict(frame=i, dt=dt, ok=bool(out.pose_ok),
+                 tracked=int(out.num_tracked), tri=int(out.num_triangulated),
+                 cand=int(out.num_candidates), inl=int(out.num_pnp_inliers),
+                 new=int(out.num_new_landmarks), frozen=bool(out.frozen))
+        )
+        if not args.quiet:
+            tag = "" if bool(out.pose_ok) else (
+                "  [POSE FROZEN]" if bool(out.frozen) else "  [POSE FALLBACK]"
+            )
+            print(f"{TAG} frame {i:5d} {fps_meter.text()}  {viz.hud_text(out)}" + tag)
+
+    def maybe_checkpoint(i):
+        if args.checkpoint and (i - first_i + 1) % args.checkpoint_every < chunk:
+            save_checkpoint(args.checkpoint, state, cfg,
+                            trajectory=poses, frame_ids=frame_ids,
+                            backend=backend)
+            if not args.quiet:
+                print(f"{TAG} checkpoint @ frame {i} -> {args.checkpoint}")
+
+    def to_host(outs):
+        return StepOutput(*(f.cpu().numpy() for f in outs))
+
+    i = start_frame
+    while i < n_frames:
+        n = min(chunk, n_frames - i)
+        t0 = time.time()
+        if chunk > 1:
+            # One `vo_rollout` and one fetch per chunk; the tail chunk is
+            # simply shorter.
+            state, outs = vo_rollout(state, seq.frames[i:i + n], K, cfg)
+        else:
+            state, out = vo_step(state, seq.frames[i], K, cfg)
+            outs = StepOutput(*(f[None] for f in out))
+        outs_np = to_host(outs)  # the copy waits for the device
+        dt = time.time() - t0
+        if i == first_i:
+            first_time = dt
+        for k in range(n):
+            record(i + k, StepOutput(*(f[k] for f in outs_np)), dt / n)
+            fps_meter.tick()
+        last = i + n - 1
+        maybe_pose_graph(last)
+        maybe_checkpoint(last)  # after the pose graph: the checkpoint includes it
+        if args.debug_validate:
+            from vo_tpu_torch.models.feature_table import debug_validate
+
+            violations = debug_validate(state.table)
+            if violations:
+                raise AssertionError(f"frame {last}: invariants violated: {violations}")
+        if observer is not None:
+            observer(last, state, backend)
+        i += n
+
+    steady = [s["dt"] for s in stats[chunk:]] or [first_time]
+    wall = time.time() - t_loop
+    fps = len(steady) / max(sum(steady), 1e-9)
+    print(f"{TAG} {len(stats)} steps in {wall:.1f}s "
+          f"(first chunk {first_time:.1f}s, steady-state {fps:.2f} fps)")
+
+    if profiler is not None:
+        profiler.stop()
+        os.makedirs(args.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+
+    est = np.stack(poses)
+    result = {"fps_steady": fps, "frames": len(stats) + 2}
+
+    est_raw = None
+    if backend is not None and backend.n_nodes >= 2:
+        t0 = time.time()
+        backend.optimize()
+        est_raw = est
+        est = backend.correct(est, np.asarray(frame_ids))
+        result.update(
+            pg_nodes=backend.n_nodes, pg_loops=backend.n_loops,
+            pg_culled=backend.n_culled, pg_seconds=round(time.time() - t0, 2),
+            pg_keyframe_seconds=round(pg_seconds, 2),
+        )
+        print(
+            f"{TAG} pose graph: {backend.n_nodes} nodes, "
+            f"{backend.n_loops} loop(s), {len(backend.rejected)} candidate(s) "
+            f"failed verification, {backend.n_culled} culled, "
+            f"optimized in {time.time() - t0:.1f}s"
+        )
+        if backend.rejected and not args.quiet:
+            for r in backend.rejected[:10] + [
+                x for x in backend.rejected[10:]
+                if x["frame"] - x["matched_frame"] > 800
+            ]:
+                print(f"{TAG}   rejected loop {r['frame']} <-> "
+                      f"{r['matched_frame']} sim {r['similarity']:.3f} "
+                      f"inliers {r['inliers']}")
+
+    if args.save_npz:
+        os.makedirs(os.path.dirname(args.save_npz) or ".", exist_ok=True)
+        extra = {}
+        if est_raw is not None:
+            extra = dict(poses_raw=est_raw, loops=json.dumps(backend.loops))
+        np.savez(args.save_npz, poses=est, frame_ids=np.asarray(frame_ids),
+                 stats=json.dumps(stats), **extra)
+        print(f"{TAG} wrote {args.save_npz}")
+
+    # Metrics over the finite prefix: a diverged run (non-finite poses after
+    # repeated fallback) still reports how far it got instead of crashing.
+    finite = np.isfinite(est.reshape(len(est), -1)).all(axis=1)
+    n_ok = int(np.argmin(finite)) if not finite.all() else len(est)
+    n_frozen = sum(1 for s in stats if s.get("frozen"))
+    if n_frozen:
+        result["frozen_frames"] = n_frozen
+        print(f"{TAG} WARNING: fail-safe froze the pose on {n_frozen} "
+              f"frame(s) — those frames are NOT tracking")
+    if n_ok < len(est):
+        result["diverged_at_frame"] = int(frame_ids[n_ok])
+        print(f"{TAG} WARNING: pose non-finite from frame {frame_ids[n_ok]}; "
+              f"metrics over first {n_ok} poses")
+    if n_ok >= 3:
+        gt = seq.gt_poses[frame_ids][:n_ok]
+        est_m = est[:n_ok]
+        ate = ate_rmse(positions_from_poses(est_m), positions_from_poses(gt))
+        t_rpe, r_rpe = rpe(est_m, gt)
+        result.update(ate_rmse_m=float(ate), rpe_trans_m=float(t_rpe),
+                      rpe_rot_rad=float(r_rpe))
+        print(f"{TAG} ATE RMSE {ate:.4f} m | RPE {t_rpe:.4f} m / {r_rpe*57.3:.3f} deg")
+        if est_raw is not None:
+            ate_raw = ate_rmse(
+                positions_from_poses(est_raw[:n_ok]), positions_from_poses(gt)
+            )
+            result.update(ate_rmse_m_pre_pg=float(ate_raw))
+            print(f"{TAG} ATE RMSE before pose graph: {ate_raw:.4f} m "
+                  f"({ate_raw / max(ate, 1e-9):.1f}x)")
+
+    return 0, Run(result=result, poses=est, poses_raw=est_raw, frame_ids=frame_ids,
+                  stats=stats, state=state, backend=backend, seq=seq)
+
+
+def main(argv=None) -> int:
+    rc, done = run(parse_args(argv))
+    if done is not None:
+        print(json.dumps(done.result))
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

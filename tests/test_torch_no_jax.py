@@ -33,21 +33,30 @@ SLICE_MODULES = [
     "vo_tpu_torch.ops.triangulate",
     "vo_tpu_torch.ops.linalg",
     "vo_tpu_torch.ops.pnp",
+    "vo_tpu_torch.ops.descriptors",
+    "vo_tpu_torch.ops.sift",
     "vo_tpu_torch.models.feature_table",
     "vo_tpu_torch.models.ba",
     "vo_tpu_torch.models.pipeline",
+    "vo_tpu_torch.models.pose_graph",
+    "vo_tpu_torch.models.keyframe_db",
+    "vo_tpu_torch.models.backend",
     "vo_tpu_torch.data.city",
     "vo_tpu_torch.data.synthetic",
     "vo_tpu_torch.data.evaluate",
     "vo_tpu_torch.utils.config",
+    "vo_tpu_torch.utils.checkpoint",
+    "vo_tpu_torch.utils.viz",
     "vo_tpu_torch.parallel",
     "vo_tpu_torch.parallel.multiseq",
     "chip_smoke",
     "run_multiseq_torch",
+    "run_vo_torch",
 ]
 
 PORT_FILES = sorted((ROOT / "vo_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "run_multiseq_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "run_multiseq_torch.py", ROOT / "run_vo_torch.py",
+] + sorted((ROOT / "tools").glob("*_torch.py"))
 
 
 def _run(code: str, cwd: Path) -> subprocess.CompletedProcess:
@@ -145,6 +154,45 @@ def test_config_tree_has_the_reference_fields():
     assert hash(tcfg.VOConfig()) == hash(tcfg.VOConfig())
 
 
+def test_backend_config_has_the_reference_fields():
+    """BackendConfig field by field: names, order, annotations, defaults."""
+    from vo_tpu.models.backend import BackendConfig as JaxBackendConfig
+
+    from vo_tpu_torch.models.backend import BackendConfig
+
+    jf, tf = dataclasses.fields(JaxBackendConfig), dataclasses.fields(BackendConfig)
+    assert [(f.name, f.type, f.default) for f in tf] == [(f.name, f.type, f.default) for f in jf]
+    assert BackendConfig().min_similarity == 0.85 and BackendConfig().topk == 4
+
+
+def test_loop_path_equals_the_reference():
+    """The closed circuit's exact path, sampled as the reference samples it."""
+    from vo_tpu.data import synthetic as jsyn
+
+    from vo_tpu_torch.data import synthetic as tsyn
+
+    np.testing.assert_array_equal(
+        tsyn.make_path(tsyn.LOOP_SPEC.path, 1169)[::97],
+        jsyn.make_path(jsyn.LOOP_SPEC.path, 1169)[::97])
+
+
+def test_viz_text_equals_the_reference():
+    import types
+
+    from vo_tpu.utils import viz as jviz
+
+    from vo_tpu_torch.utils import viz as tviz
+
+    out = types.SimpleNamespace(num_tracked=np.int32(412), num_triangulated=np.int64(230),
+                                num_candidates=9, num_pnp_inliers=np.int32(201),
+                                num_new_landmarks=3)
+    assert tviz.hud_text(out) == jviz.hud_text(out)
+    a, b = tviz.FpsMeter(window=3), jviz.FpsMeter(window=3)
+    for now in (0.0, 0.1, 0.3, 0.35, 0.6):
+        assert a.tick(now) == b.tick(now)
+    assert a.text() == b.text() and a.text().startswith("FPS:")
+
+
 def _lane_specs():
     import run_multiseq as jrunner
 
@@ -166,6 +214,8 @@ def test_lane_specs_are_the_reference_lanes():
     for name in LANES:
         assert dataclasses.asdict(tspecs[name]) == dataclasses.asdict(jspecs[name]), name
     assert dataclasses.asdict(tsyn.DEFAULT_SPEC) == dataclasses.asdict(jsyn.DEFAULT_SPEC)
+    assert dataclasses.asdict(tsyn.LOOP_SPEC) == dataclasses.asdict(jsyn.LOOP_SPEC)
+    assert tsyn.LOOP_SPEC.num_frames == 1169
     assert tsyn.ADAPTIVE_LANES == {"stopgo", "tight"}
     want = dataclasses.replace(jspecs["city_lr"], seed=6,
                                dist=(-0.28, 0.08, 0.0005, -0.0005, 0.0))
@@ -246,11 +296,18 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 @pytest.mark.parametrize("tracker", ["harris", "sift"])
 def test_unported_trackers_raise(tracker):
+    """Every tracker of the reference is ported: "harris" and "sift" run
+    (on a blank frame they find nothing and say so), and only a tracker the
+    reference does not have raises."""
     import torch
 
     from vo_tpu_torch.models.pipeline import bootstrap
     from vo_tpu_torch.utils.config import VOConfig
 
     img = torch.zeros((64, 64))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bootstrap(img, img, torch.eye(3), VOConfig(tracker=tracker), torch.Generator())
+    state, out = bootstrap(img, img, torch.eye(3), VOConfig(capacity=32, tracker=tracker),
+                           torch.Generator())
+    assert not bool(out.pose_ok) and int(out.num_tracked) == 0
+    assert state.table.desc.shape == (32, VOConfig(tracker=tracker).desc_dim)
+    with pytest.raises(ValueError, match="unknown tracker"):
+        bootstrap(img, img, torch.eye(3), VOConfig(tracker=tracker + "2"), torch.Generator())

@@ -4,10 +4,13 @@ lockstep batch — the host-side cost of the port's eager step.
 
     python tools/count_step_ops_torch.py [--lanes 6] [--steps 6]
     python tools/count_step_ops_torch.py --device cuda [--tree DIR]
+    python tools/count_step_ops_torch.py --tracker harris|sift --size 320x240 --capacity 256
 
 Runs on the CPU by default, at a small frame size (the op count does not
 depend on the frame size, only on the config, on which host branches a step
-takes, and on whether the kernels or their plain versions run: on the CPU the
+takes — the matched-detection trackers lose their pose at 160x120 and then
+count the recovery branch and no BA, so give them `--size 320x240` — and on
+whether the kernels or their plain versions run: on the CPU the
 plain versions' ops are counted, with `--device cuda` the kernel path's, where
 a kernel launch dispatches nothing but its output's allocation). `--tree`
 counts another checkout of the port. Prints one JSON line per step: the
@@ -44,6 +47,10 @@ def main(argv=None) -> int:
     p.add_argument("--lanes", type=int, default=6)
     p.add_argument("--steps", type=int, default=6)
     p.add_argument("--capacity", type=int, default=128)
+    p.add_argument("--tracker", choices=["klt", "harris", "sift"], default="klt",
+                   help="front-end whose step is counted (default klt)")
+    p.add_argument("--size", default="160x120",
+                   help="frame size WxH (default 160x120; the focal length scales with it)")
     p.add_argument("--device", default="cpu", help="cpu (default) or cuda")
     p.add_argument("--tree", default=None,
                    help="directory that holds the vo_tpu_torch package to count "
@@ -59,8 +66,9 @@ def main(argv=None) -> int:
 
     torch.set_num_threads(2)
     dev = torch.device(args.device)
-    cfg = VOConfig(capacity=args.capacity)
-    small = dict(width=160, height=120, focal=104.0)
+    cfg = VOConfig(capacity=args.capacity, tracker=args.tracker)
+    width, height = (int(v) for v in args.size.lower().split("x"))
+    small = dict(width=width, height=height, focal=104.0 * width / 160.0)
     specs = synthetic.multiseq_specs(3 + args.steps)
     seqs = [synthetic.render_sequence(dataclasses.replace(s, **small), dev)
             for s in list(specs.values())[: args.lanes]]
@@ -73,16 +81,18 @@ def main(argv=None) -> int:
     batched = stack_states(states)
     Ks = torch.stack([s.K for s in seqs])
     rows = []
+    ok = []
     for i in range(3, 3 + args.steps):
         with _Count() as c1:
             prev_kf = int(single.last_kf_idx)
-            single, _ = vo_step(single, seqs[0].frames[i], seqs[0].K, cfg)
+            single, out = vo_step(single, seqs[0].frames[i], seqs[0].K, cfg)
+        ok.append(bool(out.pose_ok))
         with _Count() as cb:
             prev_kfs = batched.last_kf_idx.clone()
             batched, _ = batched_vo_step(
                 batched, torch.stack([s.frames[i] for s in seqs]), Ks, cfg)
         rows.append({
-            "frame": i,
+            "frame": i, "single_pose_ok": ok[-1],
             "single_ops": c1.n, "single_ba": int(single.last_kf_idx) != prev_kf,
             "batched_ops": cb.n,
             "batched_ba": bool((batched.last_kf_idx != prev_kfs).any()),
@@ -90,7 +100,7 @@ def main(argv=None) -> int:
         print(json.dumps(rows[-1]))
     n = len(rows)
     print(json.dumps({
-        "lanes": args.lanes, "device": args.device,
+        "lanes": args.lanes, "device": args.device, "tracker": args.tracker,
         "mean_single_ops": sum(r["single_ops"] for r in rows) / n,
         "mean_batched_ops": sum(r["batched_ops"] for r in rows) / n,
         "batched_ops_per_lane": sum(r["batched_ops"] for r in rows) / n / args.lanes,

@@ -15,18 +15,20 @@ in `data/evaluate.py`), and tests/test_torch_no_jax.py holds the copies equal
 to the reference.
 
 Package map:
-  vo_tpu_torch.geom    — homogeneous coords, Hartley normalization, SO(3)/SE(3),
-                         camera model
+  vo_tpu_torch.geom    — homogeneous coords, Hartley normalization,
+                         SO(3)/SE(3)/Sim(3), camera model
   vo_tpu_torch.ops     — image stencils, corner detection, pyramidal LK,
-                         RANSAC, 8-point/E, DLT, P3P, small SPD solves, and
-                         the CUDA kernels (ops/kernels.py, ops/_build.py)
+                         patch descriptors + matcher, SIFT, RANSAC,
+                         8-point/E, DLT, P3P, small SPD solves, and the CUDA
+                         kernels (ops/kernels.py, ops/_build.py)
   vo_tpu_torch.models  — fixed-capacity feature table, sliding-window BA,
-                         bootstrap + per-frame step (one sequence, or B lanes
-                         in lockstep)
+                         bootstrap + per-frame step with the klt, harris and
+                         sift trackers (one sequence, or B lanes in lockstep),
+                         keyframe database, Sim(3) pose graph, back-end
   vo_tpu_torch.parallel — lockstep multi-sequence rollout (multiseq.py)
   vo_tpu_torch.data    — synthetic-city generators and on-device renderer,
                          the multi-sequence lane set, ATE/RPE
-  vo_tpu_torch.utils   — the VOConfig tree
+  vo_tpu_torch.utils   — the VOConfig tree, checkpoint / resume, text HUD
 """
 
 __version__ = "0.1.0"

@@ -83,6 +83,27 @@ DEFAULT_SPEC = SyntheticSpec(
     ),
 )
 
+#: Closed circuit with a revisit: a rounded rectangle (four same-sign 90-degree
+#: turns, opposite straights equal, so the path closes exactly) plus a 40 m
+#: tail retracing the first segment — the loop-closure testbed for the
+#: pose-graph back-end (models/pose_graph.py). ~350 m, 1169 frames.
+LOOP_SPEC = SyntheticSpec(
+    num_frames=1169,
+    path=PathSpec(
+        segments=(
+            ("straight", 80.0),
+            ("turn", 90.0, 8.0),
+            ("straight", 50.0),
+            ("turn", 90.0, 8.0),
+            ("straight", 80.0),
+            ("turn", 90.0, 8.0),
+            ("straight", 50.0),
+            ("turn", 90.0, 8.0),
+            ("straight", 40.0),
+        )
+    ),
+)
+
 
 # ---------------------------------------------------------------------------
 # Path (exact ground truth)

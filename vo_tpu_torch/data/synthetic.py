@@ -24,6 +24,7 @@ import torch
 
 from vo_tpu_torch.data.city import (  # noqa: F401  (re-exported)
     DEFAULT_SPEC,
+    LOOP_SPEC,
     PathSpec,
     SyntheticSpec,
     _rect_arrays,
@@ -207,10 +208,15 @@ def scene(spec):
     return rects, make_texture(spec.seed + 1)
 
 
-def render_sequence(spec, device) -> Sequence:
-    """Render a constant-lighting `SyntheticSpec` on `device`."""
+def render_sequence(spec, device, num_frames: int | None = None) -> Sequence:
+    """Render a constant-lighting `SyntheticSpec` on `device`; with
+    `num_frames`, that many frames of its path instead of `spec.num_frames`.
+    A path advances a fixed step a frame, so a shorter sequence is the prefix
+    of the longer one; the returned `spec` carries the length rendered."""
     if spec.lighting != "constant":
         raise NotImplementedError("only constant lighting renders on the device")
+    if num_frames is not None and num_frames != spec.num_frames:
+        spec = dataclasses.replace(spec, num_frames=num_frames)
     rects, tex = scene(spec)
     poses = make_path(spec.path, spec.num_frames)
     K = spec.K()
@@ -224,11 +230,15 @@ def render_sequence(spec, device) -> Sequence:
 def headline_sequence(device, num_frames: int | None = None) -> Sequence:
     """The 640x480 city sequence of the headline run (DEFAULT_SPEC): 600
     frames, (600, 480, 640) f32 on the device (737 MB). `num_frames` renders
-    the same path sampled at fewer frames, for a short rehearsal."""
-    spec = DEFAULT_SPEC
-    if num_frames is not None and num_frames != spec.num_frames:
-        spec = dataclasses.replace(spec, num_frames=num_frames)
-    return render_sequence(spec, device)
+    only the first so many, for a short rehearsal."""
+    return render_sequence(DEFAULT_SPEC, device, num_frames)
+
+
+def loop_sequence(device, num_frames: int | None = None) -> Sequence:
+    """The closed circuit with a revisit (LOOP_SPEC), the loop-closure
+    testbed: 1,169 frames, (1169, 480, 640) f32 on the device (1.44 GB).
+    `num_frames` renders only the first so many."""
+    return render_sequence(LOOP_SPEC, device, num_frames)
 
 
 # ---------------------------------------------------------------------------

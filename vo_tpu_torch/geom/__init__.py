@@ -1,7 +1,17 @@
-"""Math core: homogeneous coordinates, Hartley normalization, SE(3), camera."""
+"""Math core: homogeneous coordinates, Hartley normalization, SE(3), Sim(3),
+camera."""
 
 from vo_tpu_torch.geom.camera import Camera, project, transform_points
-from vo_tpu_torch.geom.lie import pose_inverse, se3_exp, se3_log, so3_exp, so3_log
+from vo_tpu_torch.geom.lie import (
+    pose_inverse,
+    se3_exp,
+    se3_log,
+    sim3_exp,
+    sim3_inverse,
+    sim3_log,
+    so3_exp,
+    so3_log,
+)
 from vo_tpu_torch.geom.points import (
     normalize_points,
     skew,
@@ -20,6 +30,9 @@ __all__ = [
     "so3_log",
     "se3_exp",
     "se3_log",
+    "sim3_exp",
+    "sim3_log",
+    "sim3_inverse",
     "pose_inverse",
     "Camera",
     "project",

@@ -1,1 +1,2 @@
-"""Pipeline models: fixed-capacity feature table, windowed BA, the VO step."""
+"""Pipeline models: fixed-capacity feature table, windowed BA, the VO step,
+and the loop-closure back-end (keyframe database, Sim(3) pose graph)."""

@@ -1,5 +1,6 @@
-"""The VO pipeline: two-view bootstrap + the per-frame step — port of the KLT
-path of vo_tpu/models/pipeline.py.
+"""The VO pipeline: two-view bootstrap + the per-frame step — port of
+vo_tpu/models/pipeline.py, all three tracker front-ends (klt: pyramidal LK;
+harris, sift: frame-to-frame descriptor matching).
 
 `vo_step(state, image, K, cfg) -> (state, out)` runs eagerly on the device
 of its tensors. The reference's two `lax.cond`s (visual recovery when PnP
@@ -23,9 +24,6 @@ samplers, one per lane. A lane draws from its own sampler only, and draws
 for the recovery only on frames where its OWN PnP failed — so lane b of a
 batch draws exactly what a single run of that lane draws, whatever happens
 to its neighbours.
-
-Only the `tracker="klt"` front-end is ported; "harris" and "sift" raise
-NotImplementedError (ROADMAP Queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -60,9 +58,10 @@ from vo_tpu_torch.ops.epipolar import (
     fundamental_ransac,
     relative_pose_from_essential,
 )
-from vo_tpu_torch.ops.harris import detect_keypoints
+from vo_tpu_torch.ops.descriptors import extract_patches, match_descriptors
+from vo_tpu_torch.ops.harris import detect_keypoints, refine_corners_subpixel
 from vo_tpu_torch.ops.image import build_pyramid
-from vo_tpu_torch.ops.klt import pyramidal_lk
+from vo_tpu_torch.ops.klt import TrackResult, pyramidal_lk
 from vo_tpu_torch.ops.pnp import pnp_ransac
 from vo_tpu_torch.ops.ransac import IDLE, Samplers, is_lane_samplers, where_lane
 from vo_tpu_torch.ops.triangulate import reprojection_error, triangulate_dlt
@@ -125,15 +124,31 @@ def map_state(fn, *states: VOState, rng: Samplers) -> VOState:
 # Shared helpers
 # ---------------------------------------------------------------------------
 
-def _require_klt(cfg: VOConfig) -> None:
-    if cfg.tracker != "klt":
-        raise NotImplementedError(
-            f"tracker={cfg.tracker!r} is not ported yet (ROADMAP Queue 1, item 11: "
-            "descriptor/SIFT tracker modes); only 'klt' runs in vo_tpu_torch"
-        )
+TRACKERS = ("klt", "harris", "sift")
+
+
+def _check_tracker(cfg: VOConfig) -> None:
+    if cfg.tracker not in TRACKERS:
+        raise ValueError(f"unknown tracker {cfg.tracker!r}; have {TRACKERS}")
+
+
+def _detect(image: torch.Tensor, cfg: VOConfig, num: int):
+    d = cfg.detector
+    harris = d.method == "harris" or cfg.tracker == "harris"
+    return detect_keypoints(
+        image, num, mode="harris" if harris else "shi_tomasi",
+        patch_size=d.patch_size, kappa=d.kappa,
+        nms_radius=d.harris_nms_radius if harris else d.nms_radius,
+        border=d.border,
+        quality_level=d.harris_quality_level if harris else d.quality_level,
+        use_pallas=d.use_pallas,
+    )
 
 
 class Detections(NamedTuple):
+    """Fixed-size per-frame detections with mode-specific descriptors; a
+    leading lane axis on every field for images (B, H, W)."""
+
     xy: torch.Tensor  # (C, 2)
     score: torch.Tensor  # (C,)
     valid: torch.Tensor  # (C,)
@@ -142,22 +157,95 @@ class Detections(NamedTuple):
 
 
 def _detect_mode(image: torch.Tensor, cfg: VOConfig) -> Detections:
-    """Shi-Tomasi detection for the KLT front-end (ref tracker.py:43-63)."""
-    _require_klt(cfg)
-    d = cfg.detector
-    harris = d.method == "harris"
-    det = detect_keypoints(
-        image, cfg.capacity, mode="harris" if harris else "shi_tomasi",
-        patch_size=d.patch_size, kappa=d.kappa,
-        nms_radius=d.harris_nms_radius if harris else d.nms_radius,
-        border=d.border,
-        quality_level=d.harris_quality_level if harris else d.quality_level,
-        use_pallas=d.use_pallas,
-    )
+    """Detect + describe with the configured front-end (ref tracker.py:43-63
+    dispatch: klt->Shi-Tomasi, harris->Harris+patches, sift->DoG+SIFT)."""
     c = cfg.capacity
-    zeros = torch.zeros((c,), dtype=torch.float32, device=image.device)
-    return Detections(det.xy, det.score, det.valid, zeros,
-                      torch.zeros((c, 1), dtype=torch.float32, device=image.device))
+    if cfg.tracker == "sift":
+        from vo_tpu_torch.ops.sift import build_scale_space, sift_describe, sift_detect
+
+        s = cfg.sift
+        # One scale space serves detection and description (the reference
+        # builds it in both and leaves the sharing to the compiler).
+        octaves = build_scale_space(image.to(torch.float32) / 255.0,
+                                    s.num_octaves, s.scales_per_octave)
+        kp = sift_detect(
+            image, c, s.num_octaves, s.scales_per_octave,
+            s.contrast_threshold, s.edge_ratio, border=cfg.detector.border,
+            octaves=octaves,
+        )
+        desc = sift_describe(image, kp.xy, kp.sigma, s.num_octaves, s.scales_per_octave,
+                             octaves=octaves)
+        return Detections(kp.xy, kp.score, kp.valid, kp.sigma, desc)
+    det = _detect(image, cfg, c)
+    zeros = torch.zeros_like(det.score)
+    if cfg.tracker == "harris":
+        # Matched detections ARE the tracked positions in this mode, so
+        # integer NMS grid positions would feed +-0.5 px quantization into
+        # PnP at every frame (KLT gets subpixel from LK instead).
+        xy = refine_corners_subpixel(image, det.xy, radius=4, iters=2)
+        xy = torch.where(det.valid[..., None], xy, det.xy)
+        desc = extract_patches(image, xy, cfg.descriptor.radius, normalize=True)
+        return Detections(xy, det.score, det.valid, zeros, desc)
+    return Detections(det.xy, det.score, det.valid, zeros, zeros[..., None])
+
+
+def _mode_match_params(cfg: VOConfig) -> tuple[float, float]:
+    if cfg.tracker == "sift":
+        return cfg.sift.ratio, cfg.sift.max_move_px
+    return cfg.descriptor.ratio, cfg.descriptor.max_move_px
+
+
+def _match_track(
+    slot_desc: torch.Tensor,  # (..., K, D) descriptors of live slots
+    slot_xy: torch.Tensor,  # (..., K, 2) current slot positions
+    slot_live: torch.Tensor,  # (..., K) bool
+    det: Detections,
+    ratio: float,
+    max_move_px: float,
+    move_scale: torch.Tensor | None = None,  # (..., K) per-slot gate multiplier
+):
+    """Frame-to-frame descriptor matching as a tracker (ref harris.py:50-84,
+    sift.py:23-53 + the Matches identity carry-over, matches.py:113-212).
+
+    Returns (TrackResult, match_idx (..., K), used (..., C) detections
+    consumed). The spatial pre-gate (a detection within max_move_px of the
+    slot, times `move_scale` for a slot that has coasted) is applied BEFORE
+    the ratio test: on repetitive texture the global top-2 are lookalikes
+    from elsewhere in the image and the ratio would kill true matches."""
+    gate = max_move_px * (
+        move_scale if move_scale is not None else torch.ones_like(slot_xy[..., 0]))
+    gate2 = gate**2
+    near = (
+        ((slot_xy[..., :, None, :] - det.xy[..., None, :, :]) ** 2).sum(dim=-1)
+        <= gate2[..., :, None]
+    )
+    m = match_descriptors(
+        slot_desc, det.desc, valid1=slot_live, valid2=det.valid, ratio=ratio,
+        pair_valid=near,
+    )
+    c = det.xy.shape[-2]
+    safe = torch.clamp(m.idx, 0, c - 1)
+    new_xy = torch.take_along_dim(det.xy, safe[..., None], dim=-2)
+    move_ok = ((new_xy - slot_xy) ** 2).sum(dim=-1) <= gate2
+    status = m.valid & move_ok
+    # used[safe] |= status, duplicates and all: every write is the same
+    # value (True), into a scratch column for the slots without a match, so
+    # the result does not depend on the order the device applies them in.
+    used = torch.zeros(det.valid.shape[:-1] + (c + 1,), dtype=torch.bool,
+                       device=det.xy.device)
+    used = used.scatter(-1, torch.where(status, safe, c), True)[..., :c]
+    tr = TrackResult(
+        xy=torch.where(status[..., None], new_xy, slot_xy),
+        status=status,
+        err=torch.where(status, m.dist, float("inf")),
+    )
+    return tr, safe, used
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (..., C, *tail) at idx (..., K) along the slot axis -> (..., K, *tail)."""
+    return torch.take_along_dim(x, idx.reshape(idx.shape + (1,) * (x.ndim - idx.ndim)),
+                                dim=idx.ndim - 1)
 
 
 def _undistort(xy: torch.Tensor, K: torch.Tensor, cfg: VOConfig) -> torch.Tensor:
@@ -212,13 +300,22 @@ def bootstrap(
     The world frame is camera 0; the bootstrap baseline is fixed to |t| = 1.
     The lanes of a multi-sequence run are bootstrapped one by one and
     stacked (parallel/multiseq.py `stack_states`)."""
-    _require_klt(cfg)
+    _check_tracker(cfg)
     dev = image0.device
     kcap = cfg.capacity
     kps = _detect_mode(image0, cfg)
-    pyr0 = build_pyramid(image0, cfg.klt.pyramid_levels)
-    pyr1 = tuple(build_pyramid(image1, cfg.klt.pyramid_levels))
-    tr = _lk(pyr0, pyr1, kps.xy, cfg)
+    if cfg.tracker == "klt":
+        pyr0 = build_pyramid(image0, cfg.klt.pyramid_levels)
+        pyr1 = tuple(build_pyramid(image1, cfg.klt.pyramid_levels))
+        tr = _lk(pyr0, pyr1, kps.xy, cfg)
+        desc1, sigma1 = kps.desc, kps.sigma
+    else:
+        pyr1 = (image1,)
+        det1 = _detect_mode(image1, cfg)
+        ratio, max_move = _mode_match_params(cfg)
+        tr, midx, _ = _match_track(kps.desc, kps.xy, kps.valid, det1, ratio, max_move)
+        desc1 = torch.where(tr.status[:, None], det1.desc[midx], kps.desc)
+        sigma1 = torch.where(tr.status, det1.sigma[midx], kps.sigma)
     tracked = kps.valid & tr.status
 
     xy0_u = _undistort(kps.xy, K, cfg)
@@ -256,8 +353,8 @@ def bootstrap(
         track_pose=pose0.reshape(1, 16).repeat(kcap, 1),
         uid=torch.arange(kcap, dtype=torch.int32, device=dev),
         score=kps.score,
-        desc=kps.desc,
-        sigma=kps.sigma,
+        desc=desc1,
+        sigma=sigma1,
     )
     window = push_keyframe(
         empty_window(cfg.ba.window, kcap, device=dev), pose1, table.xy,
@@ -321,7 +418,7 @@ def _mat_points(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 def vo_step(
     state: VOState, image: torch.Tensor, K: torch.Tensor, cfg: VOConfig
 ) -> tuple[VOState, StepOutput]:
-    _require_klt(cfg)
+    _check_tracker(cfg)
     if not is_lane_samplers(state.rng):
         # One sequence is a batch of one lane: the same kernels and the same
         # reduction shapes as lane b of a larger batch, so a single run and
@@ -338,42 +435,72 @@ def vo_step(
     table = state.table
     Kinv = torch.linalg.inv(K)
 
-    # ---- 1. Track every occupied slot with pyramidal LK ----
+    # ---- 1. Track every occupied slot with the configured front-end ----
+    # klt: pyramidal LK; harris/sift: frame-to-frame descriptor matching.
     occupied = table.state >= STATE_UNMATCHED
     rel_cv = pose_inverse(state.prev_pose) @ state.pose  # last step's motion
-    pyr_new = tuple(build_pyramid(image, cfg.klt.pyramid_levels))
-    init_flow = None
-    if cfg.klt.predict_motion:
-        # Seed LK with the constant-velocity prediction: rotation flow via
-        # the infinite homography K R K^-1, full prediction for slots with a
-        # landmark in front of the predicted camera.
-        pose_pred = state.pose @ rel_cv
-        T_pp = pose_inverse(pose_pred) @ state.pose  # prev cam -> pred cam
-        xy_ideal = _undistort(table.xy, K, cfg)
-        h = torch.cat([xy_ideal, torch.ones_like(table.xy[..., :1])], dim=-1)
-        r = _mat_points(T_pp[..., :3, :3], _mat_points(Kinv, h))
-        uv_rot = _mat_points(K, r)
-        uv_rot = uv_rot[..., :2] / torch.where(
-            uv_rot[..., 2:].abs() > 1e-6, uv_rot[..., 2:], 1.0)
-        T_cp = pose_inverse(pose_pred)
-        Xc = _mat_points(T_cp[..., :3, :3], table.landmark) + T_cp[..., None, :3, 3]
-        uv_full = _mat_points(K, Xc)
-        uv_full = uv_full[..., :2] / torch.where(Xc[..., 2:] > 0.2, Xc[..., 2:], 1.0)
-        use_full = (table.state == STATE_TRIANGULATED) & (Xc[..., 2] > 0.2)
-        guess = torch.where(use_full[..., None], uv_full, uv_rot)
-        if any(cfg.dist):
-            cam = Camera.create(K, dist=torch.tensor(cfg.dist, dtype=torch.float32,
-                                                     device=K.device))
-            guess = cam.distort_points(guess)
-        init_flow = guess - table.xy
-    tr = _lk(state.pyramid, pyr_new, table.xy, cfg, init_flow)
-
+    if cfg.tracker == "klt":
+        pyr_new = tuple(build_pyramid(image, cfg.klt.pyramid_levels))
+        init_flow = None
+        if cfg.klt.predict_motion:
+            # Seed LK with the constant-velocity prediction: rotation flow via
+            # the infinite homography K R K^-1, full prediction for slots with a
+            # landmark in front of the predicted camera.
+            pose_pred = state.pose @ rel_cv
+            T_pp = pose_inverse(pose_pred) @ state.pose  # prev cam -> pred cam
+            xy_ideal = _undistort(table.xy, K, cfg)
+            h = torch.cat([xy_ideal, torch.ones_like(table.xy[..., :1])], dim=-1)
+            r = _mat_points(T_pp[..., :3, :3], _mat_points(Kinv, h))
+            uv_rot = _mat_points(K, r)
+            uv_rot = uv_rot[..., :2] / torch.where(
+                uv_rot[..., 2:].abs() > 1e-6, uv_rot[..., 2:], 1.0)
+            T_cp = pose_inverse(pose_pred)
+            Xc = _mat_points(T_cp[..., :3, :3], table.landmark) + T_cp[..., None, :3, 3]
+            uv_full = _mat_points(K, Xc)
+            uv_full = uv_full[..., :2] / torch.where(Xc[..., 2:] > 0.2, Xc[..., 2:], 1.0)
+            use_full = (table.state == STATE_TRIANGULATED) & (Xc[..., 2] > 0.2)
+            guess = torch.where(use_full[..., None], uv_full, uv_rot)
+            if any(cfg.dist):
+                cam = Camera.create(K, dist=torch.tensor(cfg.dist, dtype=torch.float32,
+                                                         device=K.device))
+                guess = cam.distort_points(guess)
+            init_flow = guess - table.xy
+        tr = _lk(state.pyramid, pyr_new, table.xy, cfg, init_flow)
+        det = None
+        used = None
+    else:
+        pyr_new = (image,)
+        det = _detect_mode(image, cfg)
+        ratio, max_move = _mode_match_params(cfg)
+        tr, midx, used = _match_track(
+            table.desc, table.xy, occupied, det, ratio, max_move,
+            move_scale=(table.miss + 1).to(torch.float32),
+        )
+    # Miss grace period: a matched-detection slot survives up to max_miss
+    # consecutive un-redetections instead of dying on the first; while it
+    # coasts it is excluded from every geometric consumer below (its xy is
+    # stale). KLT: max_miss = 0 (LK either tracks or the slot is gone).
+    if cfg.tracker == "sift":
+        max_miss = cfg.sift.max_miss
+    elif cfg.tracker == "harris":
+        max_miss = cfg.descriptor.max_miss
+    else:
+        max_miss = 0
     tracked = occupied & tr.status
     miss = torch.where(tracked, 0, table.miss + 1).to(torch.int32)
-    st = torch.where(tracked, table.state, STATE_EMPTY)
+    coast = occupied & ~tr.status & (miss <= max_miss)
+    st = torch.where(tracked | coast, table.state, STATE_EMPTY)
     st = torch.where(tracked & (st == STATE_UNMATCHED), STATE_MATCHED, st).to(torch.int32)
     table = table._replace(xy=tr.xy, state=st, miss=miss)
+    # Only slots OBSERVED this frame feed geometry (PnP, candidates,
+    # triangulation, keyframe obs); coasting slots carry identity only.
     fresh = tracked
+    if det is not None:
+        # Carry the latest matched descriptor/scale on each slot.
+        table = table._replace(
+            desc=torch.where(tracked[..., None], _gather_rows(det.desc, midx), table.desc),
+            sigma=torch.where(tracked, _gather_rows(det.sigma, midx), table.sigma),
+        )
 
     xy_u = _undistort(table.xy, K, cfg)
     track_xy_u = _undistort(table.track_xy, K, cfg)
@@ -467,13 +594,17 @@ def vo_step(
     )
 
     # ---- 7. Top-up detection into free slots (klt.py:98-116, 206-230) ----
-    det = _detect_mode(image, cfg)
+    if det is None:
+        det = _detect_mode(image, cfg)
     live = table.state >= STATE_UNMATCHED
     d2 = ((det.xy[..., :, None, :] - table.xy[..., None, :, :]) ** 2).sum(dim=-1)
     d2 = torch.where(live[..., None, :], d2, float("inf"))
     far = d2.min(dim=-1).values > cfg.detector.min_dist_to_live**2
+    det_ok = det.valid & far
+    if used is not None:
+        det_ok = det_ok & ~used
     table, next_uid = fill_free_slots(
-        table, det.xy, det.score, det.valid & far, pose_flat, state.next_uid,
+        table, det.xy, det.score, det_ok, pose_flat, state.next_uid,
         det_desc=det.desc, det_sigma=det.sigma,
     )
 

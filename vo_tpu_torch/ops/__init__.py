@@ -1,2 +1,3 @@
-"""Device compute: image stencils, corner detection, pyramidal LK, RANSAC,
-8-point/E, DLT, P3P, small SPD solves, and the CUDA kernels (kernels.py)."""
+"""Device compute: image stencils, corner detection, pyramidal LK, patch
+descriptors and their matcher, SIFT, RANSAC, 8-point/E, DLT, P3P, small SPD
+solves, and the CUDA kernels (kernels.py)."""

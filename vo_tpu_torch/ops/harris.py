@@ -170,3 +170,55 @@ def detect_keypoints(
         masked, num_keypoints,
         border=border, min_response=min_response, quality_level=quality_level,
     )
+
+
+def refine_corners_subpixel(
+    image: torch.Tensor,
+    xy: torch.Tensor,
+    radius: int = 4,
+    iters: int = 2,
+) -> torch.Tensor:
+    """Gradient-weighted subpixel corner refinement (cv2.cornerSubPix math).
+
+    For every pixel i in a window around the corner guess q, an edge through
+    i is orthogonal to its gradient g_i, so the true corner satisfies
+    g_i . (q - x_i) = 0. Weighted least squares over the window:
+
+        q = (sum w_i g_i g_i^T)^{-1}  sum w_i (g_i g_i^T) x_i
+
+    iterated `iters` times (the window re-centres on the estimate): all K
+    keypoints at once, (K, 2r+1, 2r+1) bilinear samples and a closed-form
+    2x2 inverse per keypoint.
+
+    image (..., H, W), xy (..., K, 2). Returns (..., K, 2) refined positions
+    (clamped to +-radius of the input so a flat/degenerate window cannot
+    eject the corner)."""
+    from vo_tpu_torch.ops.image import bilinear_sample, image_gradients
+
+    gx, gy = image_gradients(image.to(torch.float32))
+    r = torch.arange(-radius, radius + 1, dtype=torch.float32, device=image.device)
+    dy, dx = torch.meshgrid(r, r, indexing="ij")
+    # cornerSubPix weighting: Gaussian over the window.
+    w = torch.exp(-(dx * dx + dy * dy) / (2.0 * (0.5 * radius) ** 2))
+    offs = torch.stack([dx, dy], dim=-1)  # (W, W, 2)
+
+    q0 = xy.to(torch.float32)
+    q = q0
+    for _ in range(iters):
+        grid = q[..., None, None, :] + offs  # (..., K, W, W, 2)
+        px = bilinear_sample(gx, grid)
+        py = bilinear_sample(gy, grid)
+        a = w * px * px
+        b = w * px * py
+        c = w * py * py
+        xs, ys = grid[..., 0], grid[..., 1]
+        a_s, b_s, c_s = (t.sum(dim=(-2, -1)) for t in (a, b, c))
+        rhs0 = (a * xs + b * ys).sum(dim=(-2, -1))
+        rhs1 = (b * xs + c * ys).sum(dim=(-2, -1))
+        det = a_s * c_s - b_s * b_s
+        ok = det.abs() > 1e-8
+        safe = torch.where(ok, det, 1.0)
+        q_new = torch.stack([(c_s / safe) * rhs0 + (-b_s / safe) * rhs1,
+                             (-b_s / safe) * rhs0 + (a_s / safe) * rhs1], dim=-1)
+        q = torch.where(ok[..., None], q_new, q)
+    return torch.minimum(torch.maximum(q, q0 - radius), q0 + radius)

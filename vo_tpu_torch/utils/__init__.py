@@ -1,1 +1,1 @@
-"""Config tree (shared with vo_tpu by file path)."""
+"""The config tree, checkpoint / resume, and the text HUD."""

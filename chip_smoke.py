@@ -49,6 +49,18 @@ Phases:
      after the correction; then the checkpoint written mid-run is resumed
      for 16 frames and held bit for bit against the straight run.
      Each prints one JSON line.
+ 10. `dist`: the distributed layer (vo_tpu_torch.parallel). (a) In a real
+     single-rank NCCL group on cuda:0, the four sharded solvers at full width
+     against their single-device functions: dist_gn (1,024 observations),
+     dist_ba (the headline's last BA window) and dist_pg (the loop circuit's
+     pose graph) bit for bit, seqpar (a composed 8 x 1,024 window) at the JAX
+     package's tolerances. (b) Two ranks sharing cuda:0 over Gloo (NCCL
+     refuses two ranks on one card): the multihost worker's --dist-ba and
+     --seqpar-ba parity verdicts and its rollout (3 lanes a rank at 640x480,
+     capacity 512, 16 steps: K1b once and K2b 4 times a step on each rank).
+     (c) run_multiseq_torch.py --seqpar-shards 2 over 150 frames: the
+     composed-window back-end must beat the rollout without it. Every part
+     prints a JSON line with its world size, backend and device.
 
 Every kernel time is taken twice: `ms` by CUDA events around 50 eager calls
 of the wrapper (what the path pays; at these sizes mostly the host's enqueue)
@@ -130,6 +142,20 @@ LOOP_MIN_LOOPS = 3  # the JAX package verified 9
 LOOP_CHECKPOINT_EVERY = 600
 REPEAT_FRAMES = 40  # the harris prefix that is run again, bit-equal
 RUN_POSE_OK_SHARE = 0.95
+
+# The distributed phase. Full width: a 1,024-observation pose, the headline's
+# last BA window, the loop circuit's pose graph, a composed 8 x 1,024 window,
+# two ranks of three 640x480 lanes at capacity 512, and --seqpar-shards 2.
+DIST_GN_POINTS = 1024
+DIST_SEQPAR_LANDMARKS, DIST_SEQPAR_WINDOW = 1024, 8
+DIST_BA_LANDMARKS_PER_RANK = 512
+DIST_ROLLOUT_LANES, DIST_ROLLOUT_STEPS = 3, 16
+DIST_CLUSTER_TIMEOUT_S = 300
+# The JAX package's --seqpar-shards 2 (README.md, a CPU run): accuracy only.
+SEQPAR_YARDSTICK = {"ate_no_refine_m": 0.298, "ate_seqpar_m": 0.051}
+# Inputs one phase leaves for a later one (the headline's BA window, the
+# loop's pose graph).
+HANDOFF: dict = {}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores.
@@ -528,6 +554,7 @@ def phase_headline(dev, n_frames: int, records: dict) -> None:
     print(f"[headline] launches: {json.dumps(counts)}")
     records["corner_response_nms"]["launches"] = counts["corner_response_nms"]
     records["extract_patches"]["launches"] = counts["extract_patches"]
+    HANDOFF["ba_window"] = (state.window, seq.K)
 
     # The renderer against the reference numpy renderer on two frames.
     rects, tex = synthetic.scene(spec)
@@ -805,6 +832,10 @@ def phase_loop(dev, n_frames: int, records: dict) -> None:
             fails.append(f"launches {counts}, want {want}")
         records["corner_response_nms"]["launches_loop"] = counts["corner_response_nms"]
         records["extract_patches"]["launches_loop"] = counts["extract_patches"]
+        # The graph as the run built it, before its final optimization.
+        HANDOFF["pose_graph"] = (
+            done.backend.graph._replace(node_pose=done.backend._pre_opt_pose),
+            done.backend.graph.node_pose, done.backend.cfg)
         if full:
             raw, ate = res.get("ate_rmse_m_pre_pg", np.inf), res.get("ate_rmse_m", np.inf)
             if res.get("pg_nodes", 0) < LOOP_MIN_NODES:
@@ -842,6 +873,234 @@ def phase_loop(dev, n_frames: int, records: dict) -> None:
     print(json.dumps(line))
     del done
     _free()
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def _timed(fn, *a, **k):
+    """(fn's result, seconds on the host clock with the card synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _max_diff(a, b) -> float:
+    """Largest |a - b| over tensors or tuples of them (NaN equal to NaN)."""
+    import torch
+
+    if isinstance(a, tuple):
+        return max(_max_diff(x, y) for x, y in zip(a, b))
+    if not a.dtype.is_floating_point:
+        return float((a != b).sum())
+    d = (a - b).abs()
+    return float(torch.where(torch.isnan(a) & torch.isnan(b), 0.0, d).max())
+
+
+def _dist_line(part: str, backend: str, dev, world: int, **fields) -> dict:
+    line = dict(phase="dist", part=part, world_size=world, backend=backend,
+                device=str(dev), **fields)
+    print(json.dumps(line))
+    return line
+
+
+def _dist_one_rank(dev, fails: list) -> None:
+    """(a) The four sharded solvers in a real single-rank NCCL group on the
+    card, at full width, against their single-device functions."""
+    import torch
+    import torch.distributed as dist
+
+    from vo_tpu_torch.geom.lie import se3_exp
+    from vo_tpu_torch.models.ba import ba_refine
+    from vo_tpu_torch.models.pose_graph import pg_optimize
+    from vo_tpu_torch.ops.pnp import refine_pose_gn
+    from vo_tpu_torch.parallel import (
+        demo_window,
+        distributed_ba_refine,
+        distributed_pg_optimize,
+        distributed_refine_pose,
+        make_mesh,
+        seqpar_ba_refine,
+        shard_window,
+        shard_window_blocks,
+    )
+    from vo_tpu_torch.parallel.mesh import psum
+    from vo_tpu_torch.parallel.window_blocks import gather_window_blocks
+
+    mesh = make_mesh(n_data=1, n_model=1, device=dev)
+    backend = dist.get_backend()
+    try:
+        # NCCL sets its communicator up at the first collective: not a
+        # solver's time.
+        _timed(psum, torch.zeros(1, device=dev), mesh, "model")
+        if backend != "nccl":
+            fails.append(f"one rank on the card runs {backend}, want nccl")
+
+        # dist_gn: 1,024 observations of a planted pose, 0.5 px noise.
+        rng = np.random.default_rng(5)
+        n = DIST_GN_POINTS
+        K = torch.tensor([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], device=dev)
+        T_true = se3_exp(torch.tensor([0.3, -0.1, 0.2, 0.05, -0.08, 0.1], device=dev))
+        X = torch.tensor(rng.uniform([-5, -3, 8], [5, 3, 30], (n, 3)), dtype=torch.float32,
+                         device=dev)
+        Xc = X @ T_true[:3, :3].T + T_true[:3, 3]
+        uv = (Xc @ K.T)[:, :2] / Xc[:, 2:]
+        uv = uv + torch.tensor(rng.normal(0, 0.5, (n, 2)), dtype=torch.float32, device=dev)
+        T0 = se3_exp(torch.tensor(rng.normal(0, 0.03, 6), dtype=torch.float32,
+                                  device=dev)) @ T_true
+        w = torch.ones(n, device=dev)
+        got, t_dist = _timed(distributed_refine_pose, mesh, T0, X, uv, w, K, iters=8)
+        want, t_one = _timed(refine_pose_gn, T0, X, uv, K, w, iters=8)
+        line = _dist_line("dist_gn", backend, dev, 1, observations=n,
+                          max_abs_diff=_max_diff(got, want), bit_equal=bool(torch.equal(got, want)),
+                          pose_err_vs_truth=_max_diff(got, T_true),
+                          seconds=round(t_dist, 4), single_device_seconds=round(t_one, 4))
+        if not line["bit_equal"]:
+            fails.append(f"dist_gn at one rank differs from refine_pose_gn by "
+                         f"{line['max_abs_diff']}")
+
+        # dist_ba: the headline's last BA window (W=6, L=1,024).
+        if "ba_window" not in HANDOFF:
+            fails.append("dist_ba: no window from the headline phase")
+        else:
+            win, Kh = HANDOFF["ba_window"]
+            (out, errs), t_dist = _timed(distributed_ba_refine, mesh, shard_window(win, mesh), Kh)
+            (ref, ref_errs), t_one = _timed(ba_refine, win, Kh)
+            line = _dist_line(
+                "dist_ba", backend, dev, 1, window=list(win.obs_mask.shape[::-1]),
+                valid_landmarks=int(win.lm_valid.sum()), err_first=float(ref_errs[0]),
+                err_last=float(ref_errs[-1]), max_abs_diff=_max_diff(tuple(out), tuple(ref)),
+                bit_equal=bool(all(torch.equal(a, b) for a, b in zip(out, ref))
+                               and torch.equal(errs, ref_errs)),
+                seconds=round(t_dist, 4), single_device_seconds=round(t_one, 4))
+            if not line["bit_equal"]:
+                fails.append(f"dist_ba at one rank differs from ba_refine by "
+                             f"{line['max_abs_diff']}")
+
+        # dist_pg: the loop circuit's pose graph before its final optimization.
+        if "pose_graph" not in HANDOFF:
+            fails.append("dist_pg: no graph from the loop phase")
+        else:
+            graph, run_pose, bcfg = HANDOFF["pose_graph"]
+            kw = dict(iters=bcfg.pg_iters, damping=bcfg.pg_damping)
+            (out, errs), t_dist = _timed(distributed_pg_optimize, mesh, graph, **kw)
+            (ref, ref_errs), t_one = _timed(pg_optimize, graph, **kw)
+            line = _dist_line(
+                "dist_pg", backend, dev, 1, capacity=graph.capacity,
+                nodes=int(graph.node_valid.sum()), loop_edges=int(graph.loop_valid.sum()),
+                err_first=float(ref_errs[0]), err_last=float(ref_errs[-1]),
+                max_abs_diff=_max_diff(out.node_pose, ref.node_pose),
+                bit_equal=bool(torch.equal(out.node_pose, ref.node_pose)
+                               and torch.equal(errs, ref_errs)),
+                equals_the_run=bool(torch.equal(out.node_pose, run_pose)),
+                seconds=round(t_dist, 4), single_device_seconds=round(t_one, 4))
+            if not line["bit_equal"]:
+                fails.append(f"dist_pg at one rank differs from pg_optimize by "
+                             f"{line['max_abs_diff']}")
+
+        # seqpar: demo_window(1024, 8) on one rank against ba_refine, at the
+        # JAX package's tolerances (the blocked sums reorder additions).
+        win = demo_window(DIST_SEQPAR_LANDMARKS, DIST_SEQPAR_WINDOW, device=dev)
+        Kd = torch.tensor([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], device=dev)
+        (out, errs), t_dist = _timed(seqpar_ba_refine, mesh, shard_window_blocks(win, mesh), Kd)
+        out = gather_window_blocks(out, mesh)
+        (ref, ref_errs), t_one = _timed(ba_refine, win, Kd)
+        ok = (torch.allclose(errs, ref_errs, rtol=1e-3, atol=1e-4)
+              and torch.allclose(out.kf_pose, ref.kf_pose, rtol=2e-4, atol=2e-4)
+              and torch.allclose(out.landmark, ref.landmark, rtol=2e-3, atol=2e-3)
+              and float(ref_errs[-1]) < float(ref_errs[0]))
+        _dist_line("seqpar", backend, dev, 1, window=[DIST_SEQPAR_WINDOW, DIST_SEQPAR_LANDMARKS],
+                   err_first=float(ref_errs[0]), err_last=float(ref_errs[-1]),
+                   max_abs_diff={"errs": _max_diff(errs, ref_errs),
+                                 "pose": _max_diff(out.kf_pose, ref.kf_pose),
+                                 "landmarks": _max_diff(out.landmark, ref.landmark)},
+                   within_tolerance=bool(ok), seconds=round(t_dist, 4),
+                   single_device_seconds=round(t_one, 4))
+        if not ok:
+            fails.append("seqpar at one rank outside the tolerances of tests/test_window_blocks.py")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_cluster(fails: list, records: dict) -> None:
+    """(b) Two ranks sharing cuda:0 over Gloo (NCCL refuses two ranks on one
+    card): the multihost worker's three modes."""
+    from vo_tpu_torch.parallel import multihost
+
+    gloo = ["--device", "cuda", "--backend", "gloo"]
+    for mode in ("--dist-ba", "--seqpar-ba"):
+        rep, dt = _timed(multihost.run_cluster, 2, [
+            mode, "--ba-landmarks-per-device", str(DIST_BA_LANDMARKS_PER_RANK)] + gloo,
+            timeout=DIST_CLUSTER_TIMEOUT_S)
+        _dist_line(mode[2:], rep["backend"], rep["device"], rep["world_size"],
+                   **{k: rep[k] for k in ("max_abs_diff", "match", "improved", "err_first",
+                                          "err_last", "all_ranks_ok")},
+                   seconds=round(dt, 3), rank_seconds=rep["seconds"])
+        if not (all(rep["match"].values()) and rep["improved"] and rep["all_ranks_ok"]):
+            fails.append(f"multihost {mode}: {rep['match']}, improved {rep['improved']}")
+
+    steps, lanes = DIST_ROLLOUT_STEPS, DIST_ROLLOUT_LANES
+    rep, dt = _timed(multihost.run_cluster, 2, [
+        "--lanes-per-device", str(lanes), "--steps", str(steps), "--capacity",
+        str(MULTISEQ_CAPACITY), "--crop", "480x640", "--repeats", "2"] + gloo,
+        timeout=DIST_CLUSTER_TIMEOUT_S)
+    launches = rep["launches"]
+    _dist_line("rollout", rep["backend"], rep["device"], rep["world_size"],
+               lanes_global=rep["lanes_global"], steps=steps, frame=rep["frame"],
+               finite=rep["finite"], gsum_ok=rep["gsum_ok"], pose_ok=rep["pose_ok"],
+               launches=launches, agg_fps=rep["agg_fps"],
+               agg_fps_note="the two ranks share one card: no scaling is measured",
+               seconds=round(dt, 3), rank_seconds=rep["seconds"])
+    want = {"corner_response_nms": [0, 0], "extract_patches": [0, 0],
+            "corner_response_nms_batched": [steps, steps],
+            "extract_patches_batched": [4 * steps, 4 * steps]}
+    if launches != want:
+        fails.append(f"rollout launches {launches}, want {want}")
+    if not (rep["finite"] and rep["gsum_ok"]):
+        fails.append(f"rollout: finite {rep['finite']}, cross-rank sum {rep['gsum_ok']}")
+    records["corner_response_nms_batched"]["launches_dist_rollout"] = launches[
+        "corner_response_nms_batched"]
+    records["extract_patches_batched"]["launches_dist_rollout"] = launches[
+        "extract_patches_batched"]
+
+
+def _dist_seqpar_rollout(fails: list, records: dict) -> None:
+    """(c) run_multiseq_torch.py --seqpar-shards 2: rank 0's front-end
+    pushes a composed 8-keyframe window, two ranks refine it."""
+    import run_multiseq_torch as runner
+
+    args = runner.parse_args(["--seqpar-shards", "2"])
+    rep, dt = _timed(runner.seqpar_cluster, args)
+    _dist_line("seqpar_shards", rep["backend"], rep["device"], rep["world_size"],
+               frames=rep["frames"], window_effective=rep["window_effective"],
+               refinements=rep["refinements"], ate_no_refine_m=rep["ate_no_refine_m"],
+               ate_seqpar_m=rep["ate_seqpar_m"], finite=rep["finite"],
+               yardstick=SEQPAR_YARDSTICK, launches=rep["launches"],
+               seconds=round(dt, 3), rank0_seconds=rep["seconds"])
+    if not rep["passed"]:
+        fails.append(f"seqpar rollout: ATE {rep['ate_seqpar_m']} m with the back-end, "
+                     f"{rep['ate_no_refine_m']} m without, finite {rep['finite']}")
+    steps = rep["frames"] - 3
+    want = {"corner_response_nms": steps + 1, "extract_patches": 4 * (steps + 1),
+            "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+    if rep["launches"] != want:
+        fails.append(f"seqpar rollout launches {rep['launches']}, want {want}")
+    records["corner_response_nms"]["launches_dist_seqpar"] = rep["launches"]["corner_response_nms"]
+    records["extract_patches"]["launches_dist_seqpar"] = rep["launches"]["extract_patches"]
+
+
+def phase_dist(dev, records: dict) -> None:
+    """The distributed layer: (a) one NCCL rank, (b) a two-rank Gloo
+    cluster on the one card, (c) the sequence-parallel rollout."""
+    fails = []
+    t0 = time.perf_counter()
+    _dist_one_rank(dev, fails)
+    _dist_cluster(fails, records)
+    _dist_seqpar_rollout(fails, records)
+    print(f"[dist] (a) + (b) + (c) in {time.perf_counter() - t0:.1f} s")
     if fails:
         raise AssertionError("; ".join(fails))
 
@@ -958,6 +1217,7 @@ def main(argv=None) -> int:
     run("harris", phase_harris, dev, args.harris_frames, records)
     run("sift", phase_sift, dev, args.sift_frames, records)
     run("loop", phase_loop, dev, args.loop_frames, records)
+    run("dist", phase_dist, dev, records)
 
     print(f"[card] {card}")
     print(json.dumps({"kernels": list(records.values())}))

@@ -31,11 +31,6 @@ from typing import Any, Callable, NamedTuple
 TAG = "[vo_tpu_torch]"
 BOOTSTRAP_SEED = 2023
 
-_UNPORTED_DATASETS = (
-    "--dataset {name} is not ported: the disk loaders (kitti, malaga, parking) "
-    "wait for their image data (ROADMAP Queue 1, 'Still to port': disk loaders); "
-    "use --dataset synthetic"
-)
 _UNPORTED_FIGURES = (
     "{flag} is not ported: the matplotlib figures of utils/viz.py wait for "
     "their packages (ROADMAP Queue 1, 'Still to port': figures)"
@@ -127,8 +122,10 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     import numpy as np
     import torch
 
+    from vo_tpu_torch.data import UNPORTED_DATASET
+
     if args.dataset != "synthetic":
-        print(_UNPORTED_DATASETS.format(name=args.dataset), file=sys.stderr)
+        print(UNPORTED_DATASET.format(name=args.dataset), file=sys.stderr)
         return 2, None
     for flag in ("viz_dir", "trajectory_pdf", "map_pdf", "landmarks_pdf"):
         if getattr(args, flag):

@@ -317,9 +317,9 @@ def test_harris_step_from_a_jax_state(frames, jax_harris_run, frame):
 
 def test_two_harris_lanes_equal_two_single_runs(frames):
     """A batch of two harris lanes through batched_vo_rollout equals the two
-    single rollouts bit for bit (at capacity 64, the size at which
-    tests/test_torch_multiseq.py holds the KLT lanes to the same standard)."""
-    cfg = VOConfig(capacity=64, tracker="harris")
+    single rollouts bit for bit (at capacity 256, as tests/test_torch_multiseq.py
+    holds the KLT lanes)."""
+    cfg = VOConfig(capacity=256, tracker="harris")
     K = T(SPEC.K())
     clips = [T(frames[:6]), T(frames[1:7])]
 

@@ -1,6 +1,7 @@
 """The lockstep multi-sequence slice of the port (vo_tpu_torch.parallel.multiseq)
-on the CPU, at the size tests/test_parallel.py uses (capacity 64, 72x96, two
-pyramid levels, radius 4, two or three lanes):
+on the CPU, at the size tests/test_parallel.py uses (capacity 64, 256 for
+the rollouts, 72x96, two pyramid levels, radius 4, two or three lanes), and a
+320x240 city at the full config for the lane-equals-its-single-run tests:
 
   * the batched kernel wrappers (their plain versions here) against the
     batched Pallas kernels in interpret mode;
@@ -9,7 +10,8 @@ pyramid levels, radius 4, two or three lanes):
   * the batched rollout against the single rollout per lane, against the JAX
     package's batched step from a carried state, under per-lane keyframe
     policies, and beside a lane whose PnP fails;
-  * the unported mesh placements and the run_multiseq_torch.py script.
+  * the lane placements without a process group, and the
+    run_multiseq_torch.py script.
 """
 
 import dataclasses
@@ -59,12 +61,15 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W, CAP = 72, 96, 64
+# The rollout tests hold a lane to its single run at the capacity at which a
+# batch-shape-dependent reduction first showed (256), not only at CAP.
+LANE_CAP = 256
 K_SMALL = np.array([[80.0, 0, 48.0], [0, 80.0, 36.0], [0, 0, 1.0]], np.float32)
 ATOL = 1e-5  # lane b of a batched call against the unbatched call, floats
 
 
-def small_cfg():
-    return VOConfig(capacity=CAP, detector=DetectorConfig(border=8, nms_radius=4),
+def small_cfg(capacity=CAP):
+    return VOConfig(capacity=capacity, detector=DetectorConfig(border=8, nms_radius=4),
                     klt=KLTConfig(pyramid_levels=2, radius=4))
 
 
@@ -529,39 +534,84 @@ def _bootstrap(frames, seed, cfg=None):
 
 
 def test_batched_vo_rollout_matches_single():
-    """(N, B) rollout must reproduce the single-sequence rollout per lane."""
-    cfg = small_cfg()
+    """(N, B) rollout must reproduce the single-sequence rollout per lane,
+    bit for bit."""
+    cfg = small_cfg(LANE_CAP)
     frames = noise_frames(0, 6)
-    _, single = tpipe.vo_rollout(_bootstrap(frames, 7), T(frames[3:6]), T(K_SMALL), cfg)
+    _, single = tpipe.vo_rollout(_bootstrap(frames, 7, cfg), T(frames[3:6]), T(K_SMALL), cfg)
 
     b = 2
-    st = _bootstrap(frames, 7)
+    st = _bootstrap(frames, 7, cfg)
     # Identical samplers so that both lanes are comparable to the single run.
-    states = tmulti.replicate_state(st, b, [st.rng, _bootstrap(frames, 7).rng])
+    states = tmulti.replicate_state(st, b, [st.rng, _bootstrap(frames, 7, cfg).rng])
     Ks = T(K_SMALL).expand(b, 3, 3).contiguous()
     bstack = T(np.stack([np.stack([im] * b) for im in frames[3:6]]))
     final, batched = tmulti.batched_vo_rollout(states, bstack, Ks, cfg)
     assert batched.pose.shape == (3, b, 4, 4) and batched.pose_ok.shape == (3, b)
-    assert final.table.xy.shape == (b, CAP, 2) and len(final.rng) == b
-    np.testing.assert_allclose(N(batched.pose[:, 0]), N(single.pose), atol=1e-5)
+    assert final.table.xy.shape == (b, LANE_CAP, 2) and len(final.rng) == b
+    np.testing.assert_array_equal(N(batched.pose[:, 0]), N(single.pose))
     np.testing.assert_array_equal(N(batched.num_triangulated[:, 1]),
                                   N(single.num_triangulated))
     assert int(single.num_triangulated.min()) > 0
 
 
+@pytest.fixture(scope="module")
+def city_320():
+    """Frames 0-7 of the default city at 320x240 (focal 208) and its K."""
+    from vo_tpu_torch.data import synthetic as tsyn
+
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, width=320, height=240, focal=208.0)
+    rects, tex = tsyn.scene(spec)
+    poses = tsyn.make_path(spec.path, spec.num_frames)[:8]
+    frames = tsyn.render_frames_torch(rects, tex, poses, spec.K(), spec.width, spec.height)
+    return frames.to(torch.float32), T(spec.K())
+
+
+@pytest.mark.parametrize("capacity", [256, 1024])
+def test_klt_lane_of_two_equals_its_single_run_bit_for_bit(city_320, capacity):
+    """Two KLT lanes of the city (frames 0-6 and 1-7), full size config,
+    through four steps (PnP on every step, BA on the keyframe steps): each
+    lane of the batch equals its single run bit for bit, poses, outputs and
+    table. No reduction on the path may pick its kernel by the batch shape."""
+    frames, K = city_320
+    cfg = VOConfig(capacity=capacity)
+    clips = [frames[:7], frames[1:8]]
+
+    def boot(i):
+        return tpipe.bootstrap(clips[i][0], clips[i][2], K, cfg,
+                               torch.Generator().manual_seed(10 + i))[0]
+
+    singles = [tpipe.vo_rollout(boot(i), clips[i][3:], K, cfg) for i in range(2)]
+    states, outs = tmulti.batched_vo_rollout(
+        tmulti.stack_states([boot(0), boot(1)]), torch.stack([c[3:] for c in clips], dim=1),
+        torch.stack([K, K]), cfg)
+    assert bool(outs.pose_ok.all())
+    for b, (st, out) in enumerate(singles):
+        for name in out._fields:
+            np.testing.assert_array_equal(N(getattr(outs, name)[:, b]), N(getattr(out, name)),
+                                          err_msg=name)
+        for name in st.table._fields:
+            np.testing.assert_array_equal(N(getattr(states.table, name)[b]),
+                                          N(getattr(st.table, name)), err_msg=name)
+        for name in st.window._fields:
+            np.testing.assert_array_equal(N(getattr(states.window, name)[b]),
+                                          N(getattr(st.window, name)), err_msg=name)
+
+
 def test_stack_states_keeps_each_lane():
     """Three DISTINCT lanes, each bootstrapped alone with its own sampler,
-    stacked and rolled over 5 frames: every lane is its own single rollout."""
-    cfg = small_cfg()
+    stacked and rolled over 5 frames: every lane is its own single rollout,
+    bit for bit."""
+    cfg = small_cfg(LANE_CAP)
     lanes = [noise_frames(s, 8, dx=2 + s) for s in range(3)]
-    singles = [tpipe.vo_rollout(_bootstrap(f, 7 + i), T(f[3:]), T(K_SMALL), cfg)
+    singles = [tpipe.vo_rollout(_bootstrap(f, 7 + i, cfg), T(f[3:]), T(K_SMALL), cfg)
                for i, f in enumerate(lanes)]
-    states = tmulti.stack_states([_bootstrap(f, 7 + i) for i, f in enumerate(lanes)])
+    states = tmulti.stack_states([_bootstrap(f, 7 + i, cfg) for i, f in enumerate(lanes)])
     stack = T(np.stack(lanes, axis=1)[3:])
     Ks = T(K_SMALL).expand(3, 3, 3).contiguous()
     final, outs = tmulti.batched_vo_rollout(states, stack, Ks, cfg)
     for b, (st, out) in enumerate(singles):
-        np.testing.assert_allclose(N(outs.pose[:, b]), N(out.pose), atol=1e-5)
+        np.testing.assert_array_equal(N(outs.pose[:, b]), N(out.pose))
         for name in ("pose_ok", "num_tracked", "num_triangulated", "num_pnp_inliers"):
             np.testing.assert_array_equal(N(getattr(outs, name)[:, b]), N(getattr(out, name)))
         np.testing.assert_array_equal(N(final.table.state[b]), N(st.table.state))
@@ -759,10 +809,41 @@ def test_a_failing_lane_leaves_its_neighbour_alone():
 # (g) what is not ported, and the run_multiseq_torch.py script
 # ---------------------------------------------------------------------------
 
+class _RankOfTwo:
+    """The mesh calls the lane placements make, as rank 1 of two on "data"."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return (2, 1)[dim]
+
+    def get_local_rank(self, axis):
+        return {"data": 1, "model": 0}[axis]
+
+
 @pytest.mark.parametrize("name", ["shard_batched_state", "make_sharded_rollout"])
 def test_mesh_placements_are_not_ported(name):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        getattr(tmulti, name)(None, None)
+    """The placements were the unported half of this module; they are ported
+    now (tests/test_torch_dist.py runs them over real ranks). Here, without a
+    process group: rank 1 of two holds lanes 2-3 with their own samplers, and
+    its rollout is the batched rollout of those lanes."""
+    cfg = small_cfg()
+    frames = noise_frames(0, 5)
+    st = _bootstrap(frames, 7)
+    gens = [torch.Generator().manual_seed(i) for i in range(4)]
+    mine = tmulti.shard_batched_state(tmulti.replicate_state(st, 4, gens), _RankOfTwo())
+    assert mine.rng == gens[2:] and mine.table.xy.shape == (2, CAP, 2)
+    with pytest.raises(ValueError, match="split"):
+        tmulti.shard_batched_state(tmulti.replicate_state(st, 3, gens[:3]), _RankOfTwo())
+    if name == "make_sharded_rollout":
+        images = T(np.stack([np.stack([im] * 2) for im in frames[3:5]]))
+        Ks = T(K_SMALL).expand(2, 3, 3).contiguous()
+        _, got = tmulti.make_sharded_rollout(_RankOfTwo(), cfg)(mine, images, Ks)
+        again = tmulti.shard_batched_state(tmulti.replicate_state(
+            st, 4, [torch.Generator().manual_seed(i) for i in range(4)]), _RankOfTwo())
+        _, want = tmulti.batched_vo_rollout(again, images, Ks, cfg)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(N(a), N(b))
 
 
 def test_run_multiseq_torch_needs_cuda_unless_asked():

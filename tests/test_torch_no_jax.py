@@ -49,6 +49,12 @@ SLICE_MODULES = [
     "vo_tpu_torch.utils.viz",
     "vo_tpu_torch.parallel",
     "vo_tpu_torch.parallel.multiseq",
+    "vo_tpu_torch.parallel.mesh",
+    "vo_tpu_torch.parallel.dist_gn",
+    "vo_tpu_torch.parallel.dist_ba",
+    "vo_tpu_torch.parallel.dist_pg",
+    "vo_tpu_torch.parallel.window_blocks",
+    "vo_tpu_torch.parallel.multihost",
     "chip_smoke",
     "run_multiseq_torch",
     "run_vo_torch",
@@ -56,7 +62,10 @@ SLICE_MODULES = [
 
 PORT_FILES = sorted((ROOT / "vo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "run_multiseq_torch.py", ROOT / "run_vo_torch.py",
-] + sorted((ROOT / "tools").glob("*_torch.py"))
+] + sorted((ROOT / "tools").glob("*_torch.py")) + [
+    # The rank bodies of the distributed tests: the spawned ranks import it.
+    ROOT / "tests" / "torch_dist_ranks.py",
+]
 
 
 def _run(code: str, cwd: Path) -> subprocess.CompletedProcess:

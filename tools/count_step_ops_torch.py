@@ -2,16 +2,16 @@
 """Count the PyTorch ops one `vo_step` dispatches, single-sequence against a
 lockstep batch — the host-side cost of the port's eager step.
 
-    python tools/count_step_ops_torch.py [--lanes 6] [--steps 6]
-    python tools/count_step_ops_torch.py --device cuda [--tree DIR]
+    python tools/count_step_ops_torch.py [--lanes 6] [--steps 6] [--tree DIR]
+    python tools/count_step_ops_torch.py --device cpu
     python tools/count_step_ops_torch.py --tracker harris|sift --size 320x240 --capacity 256
 
-Runs on the CPU by default, at a small frame size (the op count does not
+Runs on the card unless asked for the CPU, at a small frame size (the op count does not
 depend on the frame size, only on the config, on which host branches a step
 takes — the matched-detection trackers lose their pose at 160x120 and then
 count the recovery branch and no BA, so give them `--size 320x240` — and on
-whether the kernels or their plain versions run: on the CPU the
-plain versions' ops are counted, with `--device cuda` the kernel path's, where
+whether the kernels or their plain versions run: with `--device cpu` the
+plain versions' ops are counted, on the card the kernel path's, where
 a kernel launch dispatches nothing but its output's allocation). `--tree`
 counts another checkout of the port. Prints one JSON line per step: the
 frame index, whether any lane pushed a keyframe (the BA branch) and the
@@ -51,7 +51,8 @@ def main(argv=None) -> int:
                    help="front-end whose step is counted (default klt)")
     p.add_argument("--size", default="160x120",
                    help="frame size WxH (default 160x120; the focal length scales with it)")
-    p.add_argument("--device", default="cpu", help="cpu (default) or cuda")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default; fails without a GPU) or cpu, only when asked")
     p.add_argument("--tree", default=None,
                    help="directory that holds the vo_tpu_torch package to count "
                         "(default: the tree this script is in)")
@@ -64,6 +65,10 @@ def main(argv=None) -> int:
     from vo_tpu_torch.parallel.multiseq import batched_vo_step, stack_states
     from vo_tpu_torch.utils.config import VOConfig
 
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("count_step_ops_torch: no CUDA device visible (pass --device cpu to "
+              "count the plain versions on the CPU)", file=sys.stderr)
+        return 2
     torch.set_num_threads(2)
     dev = torch.device(args.device)
     cfg = VOConfig(capacity=args.capacity, tracker=args.tracker)

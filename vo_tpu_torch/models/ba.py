@@ -1,6 +1,6 @@
 """Sliding-window bundle adjustment: batched Schur-complement Gauss-Newton —
-port of vo_tpu/models/ba.py (single device; the reference's `reduce_fn`
-hook for landmark-sharded BA waits for the distributed port).
+port of vo_tpu/models/ba.py, with its `reduce_fn` hook for landmark-sharded
+BA (parallel/dist_ba.py).
 
   * fixed window of W keyframes and L landmark rows (L = table capacity);
   * all (L, W) reprojection residuals and analytic Jacobians in one sweep;
@@ -19,13 +19,14 @@ renormalization and accept veto.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
 
 from vo_tpu_torch.geom.lie import pose_inverse, se3_exp
 from vo_tpu_torch.ops.linalg import spd_solve_blocked
-from vo_tpu_torch.ops.ransac import pick, where_lane
+from vo_tpu_torch.ops.ransac import lane_by_lane, pick, where_lane
 
 # Gauge fixing: diagonal added to the first keyframe's camera block.
 _GAUGE = 1e8
@@ -163,9 +164,20 @@ def _obs_mask(window: BAWindow, depth_ok: torch.Tensor) -> torch.Tensor:
             & window.kf_valid[..., None, :])
 
 
-def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float):
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float,
+             reduce_fn=_same):
     """One damped Schur-complement GN step. Returns (new kf_pose, new
-    landmark, mean masked reprojection error before the step)."""
+    landmark, mean masked reprojection error before the step).
+
+    `reduce_fn` sums landmark-partitioned terms over the ranks that hold the
+    other landmark rows (parallel/dist_ba.py): the camera-side normal
+    equations (U, bc, the Schur fill-in and its gradient term) and the error
+    ride the collective, the landmark elimination stays local. It sums over
+    ranks, never over the lane axis."""
     W = window.window_size
     dev = K.device
     r, Jc, Jx, depth_ok = _residuals_jacobians(
@@ -175,11 +187,15 @@ def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float)
     rn = torch.linalg.vector_norm(r, dim=-1)
     wgt = torch.where(rn > huber_px, huber_px / torch.clamp(rn, min=1e-9), 1.0)
     m = (mask * wgt)[..., None, None]
-    err = _masked_mean(rn, mask)
+    err = _masked_mean(rn, mask, reduce_fn)
 
+    # A lane must round as its single run: where an einsum was seen to pick
+    # its kernel by the batch shape, it runs lane by lane (bc, the
+    # back-substitution) or is written as products and sums (b_red).
     Jc_m = Jc * m
-    U = torch.einsum("...lwia,...lwib->...wab", Jc_m, Jc)  # (..., W, 6, 6)
-    bc = torch.einsum("...lwia,...lwi->...wa", Jc_m, r)  # (..., W, 6)
+    U = reduce_fn(torch.einsum("...lwia,...lwib->...wab", Jc_m, Jc))  # (..., W, 6, 6)
+    bc = reduce_fn(lane_by_lane(partial(torch.einsum, "...lwia,...lwi->...wa"),
+                                Jc_m, r, core=4))  # (..., W, 6)
     Jx_m = Jx * m
     V = torch.einsum("...lwia,...lwib->...lab", Jx_m, Jx)  # (..., L, 3, 3)
     bx = torch.einsum("...lwia,...lwi->...la", Jx_m, r)  # (..., L, 3)
@@ -192,12 +208,10 @@ def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float)
 
     # Schur complement S = U - sum_l Wc V^-1 Wc^T  (..., W, W, 6, 6).
     WVi = torch.einsum("...lwab,...lbc->...lwac", Wc, Vinv)
-    S = -torch.einsum("...lwac,...lvbc->...wvab", WVi, Wc)
+    S = -reduce_fn(torch.einsum("...lwac,...lvbc->...wvab", WVi, Wc))
     diag = torch.arange(W, device=dev)
     S[..., diag, diag, :, :] += U + damping * eye6
-    # Written as products and sums, not einsum: a matrix-vector einsum picks
-    # its kernel by the batch shape, and a lane must round as a single run.
-    b_red = bc - (WVi * bx[..., :, None, None, :]).sum(dim=-1).sum(dim=-3)
+    b_red = bc - reduce_fn((WVi * bx[..., :, None, None, :]).sum(dim=-1).sum(dim=-3))
 
     # Gauge: freeze the oldest valid keyframe (each lane's own); dead
     # keyframes get identity blocks so the solve stays well-posed.
@@ -212,7 +226,7 @@ def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float)
     solve_ok = torch.isfinite(delta_c).flatten(-2).all(dim=-1)[..., None, None]
     delta_c = torch.where(solve_ok, delta_c, 0.0)
     rhs = -bx - (Wc * delta_c[..., None, :, :, None]).sum(dim=(-3, -2))
-    delta_x = torch.einsum("...lab,...lb->...la", Vinv, rhs)
+    delta_x = lane_by_lane(partial(torch.einsum, "...lab,...lb->...la"), Vinv, rhs, core=3)
     delta_x = torch.where(
         solve_ok & torch.isfinite(delta_x).all(dim=-1, keepdim=True), delta_x, 0.0
     )
@@ -224,19 +238,20 @@ def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float)
     return kf_pose, landmark, err
 
 
-def _masked_mean(rn: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of rn (..., L, W) over the masked observations of each window."""
-    total = torch.where(mask, rn, 0.0).sum(dim=(-2, -1))
-    return total / torch.clamp(mask.sum(dim=(-2, -1)), min=1)
+def _masked_mean(rn: torch.Tensor, mask: torch.Tensor, reduce_fn=_same) -> torch.Tensor:
+    """Mean of rn (..., L, W) over the masked observations of each window;
+    numerator and count are summed by `reduce_fn` before the division."""
+    total = reduce_fn(torch.where(mask, rn, 0.0).sum(dim=(-2, -1)))
+    return total / torch.clamp(reduce_fn(mask.sum(dim=(-2, -1))), min=1)
 
 
-def _mean_reproj_err(window: BAWindow, K: torch.Tensor) -> torch.Tensor:
+def _mean_reproj_err(window: BAWindow, K: torch.Tensor, reduce_fn=_same) -> torch.Tensor:
     """Masked mean reprojection error of the window."""
     r, _, _, depth_ok = _residuals_jacobians(
         window.kf_pose, window.landmark, window.obs_uv, K
     )
     mask = _obs_mask(window, depth_ok)
-    return _masked_mean(torch.linalg.vector_norm(r, dim=-1), mask)
+    return _masked_mean(torch.linalg.vector_norm(r, dim=-1), mask, reduce_fn)
 
 
 def _two_oldest_valid(kf_valid: torch.Tensor):
@@ -253,6 +268,7 @@ def ba_refine(
     iters: int = 5,
     damping: float = 1e-3,
     huber_px: float = 2.0,
+    reduce_fn=None,
     fix_scale: bool = True,
 ) -> tuple[BAWindow, torch.Tensor]:
     """Run `iters` damped GN steps. Returns (refined window, (..., iters)
@@ -263,16 +279,21 @@ def ba_refine(
     accepted only if the error did not grow (>2%) and every pose and valid
     landmark is finite; otherwise the input window comes back unchanged —
     lane by lane, when the window carries a lane axis.
+
+    `reduce_fn` (see `_gn_step`) also sums the error terms and the finite
+    veto, so every rank of a landmark-sharded window takes the same accept
+    decision. None is the single-device solver.
     """
     if window.kf_pose.ndim == 2:
         # One window is a batch of one lane: the same reduction shapes as a
         # lane of a larger batch, so the two round alike (the 1e8 gauge
         # amplifies any difference in summation order).
         out, errs = ba_refine(BAWindow(*(f[None] for f in window)), K.reshape(1, 3, 3),
-                              iters, damping, huber_px, fix_scale)
+                              iters, damping, huber_px, reduce_fn, fix_scale)
         return BAWindow(*(f[0] for f in out)), errs[0]
+    reduce_fn = reduce_fn or _same
     pose_shape = window.kf_pose.shape[:-1] + (4, 4)
-    err0 = _mean_reproj_err(window, K)
+    err0 = _mean_reproj_err(window, K, reduce_fn)
     centers0 = window.kf_pose.reshape(pose_shape)[..., :3, 3]
     i0, i1, has2 = _two_oldest_valid(window.kf_valid)
     d_before = torch.linalg.vector_norm(pick(centers0, i1) - pick(centers0, i0), dim=-1)
@@ -280,7 +301,7 @@ def ba_refine(
     refined = window
     errs = []
     for _ in range(iters):
-        kf_pose, landmark, err = _gn_step(refined, K, damping, huber_px)
+        kf_pose, landmark, err = _gn_step(refined, K, damping, huber_px, reduce_fn)
         refined = refined._replace(kf_pose=kf_pose, landmark=landmark)
         errs.append(err)
 
@@ -297,9 +318,9 @@ def ba_refine(
             landmark=anchor + s * (refined.landmark - anchor),
         )
 
-    err1 = _mean_reproj_err(refined, K)
-    bad = (~torch.isfinite(refined.kf_pose)).sum(dim=(-2, -1)) + (
+    err1 = _mean_reproj_err(refined, K, reduce_fn)
+    bad = reduce_fn((~torch.isfinite(refined.kf_pose)).sum(dim=(-2, -1)) + (
         refined.lm_valid[..., None] & ~torch.isfinite(refined.landmark)
-    ).sum(dim=(-2, -1))
+    ).sum(dim=(-2, -1)))
     accept = torch.isfinite(err1) & (err1 <= err0 * 1.02) & (bad == 0)
     return where_window(accept, refined, window), torch.stack(errs, dim=-1)

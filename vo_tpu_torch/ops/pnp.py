@@ -12,6 +12,7 @@ sampler per lane; lane b of the result is the unbatched call on lane b.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -19,7 +20,13 @@ import torch
 from vo_tpu_torch.geom.lie import se3_exp
 from vo_tpu_torch.geom.points import bmat, skew, to_homogeneous
 from vo_tpu_torch.ops.linalg import spd_solve_small
-from vo_tpu_torch.ops.ransac import RansacResult, Samplers, num_iterations, ransac
+from vo_tpu_torch.ops.ransac import (
+    RansacResult,
+    Samplers,
+    lane_by_lane,
+    num_iterations,
+    ransac,
+)
 
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -298,6 +305,38 @@ def pnp_ransac(
     return PnPResult(T, res.inliers, res.num_inliers, res.errors)
 
 
+def _normal_equations(T, X_w, uv, w, K):
+    """J^T W J (..., 6, 6) and J^T W r (..., 6) of the reprojection residuals
+    under a left se(3) perturbation of T_cw, summed over the points of each
+    lane. The two sums run lane by lane: their einsums pick a kernel by the
+    batch shape, and a lane must round as its single run. `dist_gn` sums the
+    same per-rank terms over the "model" axis."""
+    fx, fy, cx, cy = (K[..., i, j, None] for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+    eye3 = torch.eye(3, dtype=T.dtype, device=T.device)
+    Y = (bmat(T[..., :3, :3], X_w) @ X_w[..., None])[..., 0] + T[..., None, :3, 3]
+    z = Y[..., 2]
+    inv_z = 1.0 / torch.where(z.abs() < 1e-6, 1e-6, z)
+    uv_hat = torch.stack(
+        [fx * Y[..., 0] * inv_z + cx, fy * Y[..., 1] * inv_z + cy], dim=-1
+    )
+    r = uv_hat - uv
+    w = w * (z > 1e-6)
+    zero = torch.zeros_like(z)
+    J_pi = torch.stack(
+        [
+            torch.stack([fx * inv_z, zero, -fx * Y[..., 0] * inv_z**2], -1),
+            torch.stack([zero, fy * inv_z, -fy * Y[..., 1] * inv_z**2], -1),
+        ],
+        dim=-2,
+    )  # (..., N, 2, 3)
+    J_xi = torch.cat([eye3.expand(Y.shape[:-1] + (3, 3)), -skew(Y)], dim=-1)
+    J = J_pi @ J_xi  # (..., N, 2, 6)
+    Jw = J * w[..., None, None]
+    H = lane_by_lane(partial(torch.einsum, "...nij,...nik->...jk"), Jw, J, core=3)
+    g = lane_by_lane(partial(torch.einsum, "...nij,...ni->...j"), Jw, r, core=3)
+    return H, g
+
+
 def refine_pose_gn(
     T_cw: torch.Tensor,
     X_w: torch.Tensor,
@@ -310,34 +349,11 @@ def refine_pose_gn(
     """Fixed-iteration Levenberg-damped Gauss-Newton over the se(3) twist
     (LEFT perturbation T <- exp(xi) T); the 6x6 normal equations are solved
     by the hand-written SPD Cholesky (`spd_solve_small`)."""
-    fx, fy, cx, cy = (K[..., i, j, None] for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
     eye6 = torch.eye(6, dtype=T_cw.dtype, device=T_cw.device)
-    eye3 = torch.eye(3, dtype=T_cw.dtype, device=T_cw.device)
     T = T_cw
     for _ in range(iters):
-        # (..., N, 3) camera points
-        Y = (bmat(T[..., :3, :3], X_w) @ X_w[..., None])[..., 0] + T[..., None, :3, 3]
-        z = Y[..., 2]
-        inv_z = 1.0 / torch.where(z.abs() < 1e-6, 1e-6, z)
-        uv_hat = torch.stack(
-            [fx * Y[..., 0] * inv_z + cx, fy * Y[..., 1] * inv_z + cy], dim=-1
-        )
-        r = uv_hat - uv
-        w = weights * (z > 1e-6)
-        zero = torch.zeros_like(z)
-        J_pi = torch.stack(
-            [
-                torch.stack([fx * inv_z, zero, -fx * Y[..., 0] * inv_z**2], -1),
-                torch.stack([zero, fy * inv_z, -fy * Y[..., 1] * inv_z**2], -1),
-            ],
-            dim=-2,
-        )  # (N, 2, 3)
-        J_xi = torch.cat([eye3.expand(Y.shape[:-1] + (3, 3)), -skew(Y)], dim=-1)
-        J = J_pi @ J_xi  # (N, 2, 6)
-        Jw = J * w[..., None, None]
-        H = torch.einsum("...nij,...nik->...jk", Jw, J) + damping * eye6
-        g = torch.einsum("...nij,...ni->...j", Jw, r)
-        delta = spd_solve_small(H, -g, 6)
+        H, g = _normal_equations(T, X_w, uv, weights, K)
+        delta = spd_solve_small(H + damping * eye6, -g, 6)
         delta = torch.where(torch.isfinite(delta).all(dim=-1, keepdim=True), delta, 0.0)
         T = se3_exp(delta) @ T
     return T

@@ -124,6 +124,21 @@ def pick(x: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(x, idx, dim=lead).squeeze(lead)
 
 
+def lane_by_lane(fn, *xs: torch.Tensor, core: int) -> torch.Tensor:
+    """fn(*xs) computed one lane at a time: the leading dims of xs beyond
+    their last `core` ones are flattened to lanes, fn runs on each lane as a
+    (1, ...) slice, and the results are stacked back. A batched einsum or
+    matmul picks its kernel by the batch shape, so a reduction that must
+    round in a lane of B as in the single run of that lane (a batch of one)
+    runs as that single run's call. Without leading dims, fn(*xs)."""
+    lead = xs[0].shape[:-core]
+    if not lead:
+        return fn(*xs)
+    flat = [x.reshape((-1,) + x.shape[len(lead):]) for x in xs]
+    out = torch.cat([fn(*(x[i:i + 1] for x in flat)) for i in range(flat[0].shape[0])])
+    return out.reshape(lead + out.shape[1:])
+
+
 def where_lane(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.where with a per-lane condition (*lead) against (*lead, *tail)."""
     return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - cond.ndim)), a, b)

@@ -12,8 +12,10 @@ carries a leading B, and the two kernels run once per call over all lanes
 RANSAC draws are made lane by lane, each from the lane's own sampler, so
 lane b of a batched rollout is the single rollout of lane b.
 
-The mesh placements of the reference (`shard_batched_state`,
-`make_sharded_rollout`) wait for the distributed port.
+Over ranks (`shard_batched_state`, `make_sharded_rollout`) the lanes are
+split over the mesh "data" axis: a rank holds its lanes and rolls them with
+`batched_vo_rollout`. Lanes are independent, so no collective runs inside
+the step; outputs are gathered only for reporting (`gather_lanes`).
 """
 
 from __future__ import annotations
@@ -24,13 +26,8 @@ import torch
 
 from vo_tpu_torch.models.pipeline import StepOutput, VOState, map_state, vo_step
 from vo_tpu_torch.ops.ransac import Sampler, is_lane_samplers
+from vo_tpu_torch.parallel.mesh import all_gather, axis_index, axis_size, local_rows
 from vo_tpu_torch.utils.config import VOConfig
-
-_NOT_PORTED = (
-    "{name} is not ported yet (ROADMAP Queue 1, item 15: the mesh and "
-    "multi-host placements go with the torch.distributed port); on one card "
-    "a batched state needs no placement"
-)
 
 
 def replicate_state(state: VOState, batch: int, samplers: Sequence[Sampler]) -> VOState:
@@ -84,8 +81,38 @@ def batched_vo_rollout(
 
 
 def shard_batched_state(states: VOState, mesh) -> VOState:
-    raise NotImplementedError(_NOT_PORTED.format(name="shard_batched_state"))
+    """This rank's lanes of a batched VOState given whole on every rank: the
+    lane axis is split over the mesh "data" axis in equal blocks, and each
+    lane keeps its own sampler."""
+    n, i = axis_size(mesh, "data"), axis_index(mesh, "data")
+    b = len(states.rng)
+    if b % n:
+        raise ValueError(f"{b} lanes do not split over {n} ranks of 'data'")
+    per = b // n
+    return map_state(lambda x: local_rows(x, mesh, "data"), states,
+                     rng=list(states.rng[i * per:(i + 1) * per]))
 
 
 def make_sharded_rollout(mesh, cfg: VOConfig):
-    raise NotImplementedError(_NOT_PORTED.format(name="make_sharded_rollout"))
+    """The rollout of a rank's lanes (`shard_batched_state`), the deployment
+    shape for lanes over several cards or hosts. Returns rollout(states,
+    images, Ks) with this rank's lanes: images (N, B_local, H, W), Ks
+    (B_local, 3, 3); it gives the rank's final state and StepOutputs.
+
+    The JAX package shard_maps the step so that XLA inserts no per-frame
+    collective (its LK loop condition and top_k would otherwise synchronise
+    the hosts every frame). Here each rank runs `batched_vo_rollout` on its
+    own lanes, so the step contains no collective by construction; a lane's
+    result is its result in one batch. `mesh` is the rank's placement."""
+    del mesh  # the lanes were placed by shard_batched_state
+
+    def rollout(states: VOState, images: torch.Tensor, Ks: torch.Tensor):
+        return batched_vo_rollout(states, images, Ks, cfg)
+
+    return rollout
+
+
+def gather_lanes(outs: StepOutput, mesh) -> StepOutput:
+    """Every rank's StepOutputs (N, B_local, ...) as (N, B, ...) in lane
+    order, on every rank: for reporting, outside the step."""
+    return StepOutput(*(all_gather(f, mesh, "data", dim=1) for f in outs))

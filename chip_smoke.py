@@ -37,7 +37,22 @@ Phases:
      gates the batched launch counts, finiteness, per-lane pose_ok and, at
      the full 600 frames a lane (`--multiseq-frames 600`; 150 by default),
      the ATE;
-  9. `harris`, `sift`, `loop`: the entry point `run_vo_torch.py` through its
+  9. `data`: the disk data layer at full width. (a) what the machine has
+     for decoding (g++, the png.h and jpeglib.h headers, PIL, cv2,
+     matplotlib); the native frame loader must build where the headers
+     are, and decode the phase's PNGs bit-equal to png.py (png.py against
+     PIL where it cannot build). (b) `generate` writes the first 60 frames
+     of the default city; `run_vo_torch.py --dataset parking` over them and
+     `--dataset synthetic` give the same poses bit for bit, and K.txt gives
+     spec.K(). (c) the 600-frame city under varying lighting, written by
+     `generate` and run from disk (`--chunk 16`, the decode-ahead ring where
+     the native loader built): K1 598 and K2 2,392 launches, finite, 0
+     frozen, pose_ok >= 590 of 597, ATE below max(3 x the headline's ATE,
+     0.35 m). (d) `run_multiseq_torch.py` over (c)'s layout at capacity 512,
+     40 steps: `--sweep 1,6`, then six lanes (seeds 2023 + i); K1b once and
+     K2b four times a batched step (B = 1 launches K1 and K2), finite lanes,
+     each lane's ATE <= 2 m;
+ 10. `harris`, `sift`, `loop`: the entry point `run_vo_torch.py` through its
      own `run` function, at full width (640x480, capacity 1024). `harris`:
      `--tracker harris` over the 600-frame city (the corner kernel's
      (harris, 7, 5) instance twice at bootstrap and once a step, no gather
@@ -49,7 +64,7 @@ Phases:
      after the correction; then the checkpoint written mid-run is resumed
      for 16 frames and held bit for bit against the straight run.
      Each prints one JSON line.
- 10. `dist`: the distributed layer (vo_tpu_torch.parallel). (a) In a real
+ 11. `dist`: the distributed layer (vo_tpu_torch.parallel). (a) In a real
      single-rank NCCL group on cuda:0, the four sharded solvers at full width
      against their single-device functions: dist_gn (1,024 observations),
      dist_ba (the headline's last BA window) and dist_pg (the loop circuit's
@@ -76,7 +91,9 @@ exits non-zero without that line; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -153,8 +170,20 @@ DIST_ROLLOUT_LANES, DIST_ROLLOUT_STEPS = 3, 16
 DIST_CLUSTER_TIMEOUT_S = 300
 # The JAX package's --seqpar-shards 2 (README.md, a CPU run): accuracy only.
 SEQPAR_YARDSTICK = {"ate_no_refine_m": 0.298, "ate_seqpar_m": 0.051}
-# Inputs one phase leaves for a later one (the headline's BA window, the
-# loop's pose graph).
+# The data phase: the default city written to disk and read back. (b) cuts
+# it to 60 frames; (c) writes all 600 under varying lighting; (d) runs the
+# dataset lanes over (c)'s layout.
+DATA_EQUAL_FRAMES = 60
+DATA_FRAMES = 600
+DATA_CHUNK = 16
+DATA_DECODE_CHECK = 8  # frames decoded by two decoders, bit for bit
+# tests/test_lighting.py's gate: varying lighting within 3x the ATE of the
+# same city under constant lighting, and never below 0.35 m.
+LIGHTING_ATE_FACTOR, LIGHTING_ATE_FLOOR_M = 3.0, 0.35
+DATA_LANES, DATA_LANE_CAPACITY, DATA_LANE_STEPS = 6, 512, 40
+DATA_LANE_ATE_M = 2.0  # the multiseq floor
+# Inputs one phase leaves for a later one (the headline's BA window and ATE,
+# the loop's pose graph).
 HANDOFF: dict = {}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -555,6 +584,7 @@ def phase_headline(dev, n_frames: int, records: dict) -> None:
     records["corner_response_nms"]["launches"] = counts["corner_response_nms"]
     records["extract_patches"]["launches"] = counts["extract_patches"]
     HANDOFF["ba_window"] = (state.window, seq.K)
+    HANDOFF["headline_ate"] = ate
 
     # The renderer against the reference numpy renderer on two frames.
     rects, tex = synthetic.scene(spec)
@@ -679,6 +709,197 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
         counts["corner_response_nms"] + dcounts["corner_response_nms"])
     records["extract_patches"]["launches_multiseq"] = (
         counts["extract_patches"] + dcounts["extract_patches"])
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def _probe_toolchain() -> dict:
+    """What this machine has for the native frame loader and the figures:
+    a C++ compiler, the libpng and libjpeg headers (preprocessed, so every
+    include path counts), PIL, cv2 and matplotlib."""
+    import importlib.util
+    import shutil
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    found = {"cxx": cxx}
+    for header in ("png.h", "jpeglib.h"):
+        ok = False
+        if cxx:
+            src = f"#include <cstdio>\n#include <{header}>\n"
+            ok = subprocess.run([cxx, "-E", "-x", "c++", "-o", "/dev/null", "-"], input=src,
+                                capture_output=True, text=True, timeout=60).returncode == 0
+        found[header] = ok
+    for package in ("PIL", "cv2", "matplotlib"):
+        found[package] = importlib.util.find_spec(package) is not None
+    return found
+
+
+def _data_decoders(paths: list, fails: list) -> dict:
+    """(a) The native loader against png.py on the phase's own PNGs, bit for
+    bit; where the native loader cannot be built (no headers), png.py
+    against PIL."""
+    from vo_tpu_torch.data import native_loader, png
+
+    found = _probe_toolchain()
+    t0 = time.perf_counter()
+    native = native_loader.available()
+    line = dict(phase="data", part="decoders", **found, native=native,
+                native_build_s=round(time.perf_counter() - t0, 3),
+                native_error=native_loader.build_error())
+    if found["cxx"] and found["png.h"] and found["jpeglib.h"] and not native:
+        fails.append(f"the native loader did not build: {native_loader.build_error()}")
+    if native:
+        other, name = native_loader.decode_gray, "native"
+    elif found["PIL"]:
+        from PIL import Image
+
+        other, name = (lambda p: np.asarray(Image.open(p).convert("L"), np.float32)), "PIL"
+    else:
+        other, name = None, None
+    line["checked"] = f"png.py vs {name}" if name else "png.py alone"
+    t0 = time.perf_counter()
+    frames = [png.read_gray(p) for p in paths]
+    line["png_py_ms_a_frame"] = round(1e3 * (time.perf_counter() - t0) / len(paths), 3)
+    if other is not None:
+        t0 = time.perf_counter()
+        again = [other(p) for p in paths]
+        line[f"{name}_ms_a_frame"] = round(1e3 * (time.perf_counter() - t0) / len(paths), 3)
+        line["bit_equal"] = all(np.array_equal(a, b) for a, b in zip(frames, again))
+        if not line["bit_equal"]:
+            fails.append(f"png.py and {name} decode differently")
+    line["frames_checked"] = len(paths)
+    print(json.dumps(line))
+    return line
+
+
+def phase_data(dev, n_frames: int, records: dict) -> None:
+    """The disk data layer at full width: `generate` writes the default city
+    to disk, `run_vo_torch.py --dataset parking` and `run_multiseq_torch.py`
+    read it back through vo_tpu_torch.data.Sequence."""
+    import shutil
+    import tempfile
+    from glob import glob
+
+    import torch
+
+    import run_multiseq_torch as runner
+    from vo_tpu_torch.data import Sequence, synthetic
+    from vo_tpu_torch.ops import kernels
+
+    fails = []
+    tmp = Path(tempfile.mkdtemp(prefix="vo_data_"))
+    try:
+        # (b) disk equals device: 60 frames through both entry paths.
+        spec = synthetic.DEFAULT_SPEC
+        t0 = time.perf_counter()
+        synthetic.generate(str(tmp / "equal" / "parking"),
+                           dataclasses.replace(spec, num_frames=DATA_EQUAL_FRAMES),
+                           verbose=False, device=dev)
+        t_gen60 = time.perf_counter() - t0
+        paths = sorted(glob(str(tmp / "equal" / "parking" / "images" / "*.png")))
+        _data_decoders(paths[:DATA_DECODE_CHECK], fails)
+        common = ["--max-frames", str(DATA_EQUAL_FRAMES), "--chunk", str(DATA_CHUNK), "--quiet"]
+        disk = _drive(["--dataset", "parking", "--data-root", str(tmp / "equal"), *common])
+        device = _drive(common)
+        seq = Sequence("parking", path=str(tmp / "equal"))
+        k_equal = bool(np.array_equal(seq.K, spec.K().astype(np.float32)))
+        equal = bool(np.array_equal(disk.poses, device.poses))
+        print(json.dumps(dict(phase="data", part="disk_equals_device", frames=DATA_EQUAL_FRAMES,
+                              generate_s=round(t_gen60, 2), poses_bit_equal=equal,
+                              K_equal=k_equal, decoder=disk.result["decoder"],
+                              prefetch=disk.result["prefetch"],
+                              ate_disk_m=disk.result.get("ate_rmse_m"),
+                              ate_device_m=device.result.get("ate_rmse_m"))))
+        if not equal:
+            d = np.abs(disk.poses - device.poses).max()
+            fails.append(f"(b) disk and device poses differ (max {d:.3g})")
+        if not k_equal:
+            fails.append(f"(b) K.txt gives {seq.K.tolist()}, spec.K() {spec.K().tolist()}")
+        del disk, device
+        _free()
+
+        # (c) the whole city under varying lighting, from disk.
+        lit = dataclasses.replace(spec, lighting="varying", num_frames=n_frames)
+        root = tmp / "lit"
+        t0 = time.perf_counter()
+        synthetic.generate(str(root / "parking"), lit, verbose=False, device=dev)
+        t_gen = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(p) for p in glob(str(root / "parking" / "images" / "*")))
+        kernels.reset_launch_counts()
+        done = _drive(["--dataset", "parking", "--data-root", str(root),
+                       "--chunk", str(DATA_CHUNK), "--quiet"])
+        counts = dict(kernels.launch_counts)
+        line = dict(phase="data", part="varying_lighting_from_disk",
+                    **_run_gates("data (c)", done, fails, 0.0),
+                    **done.result, launches=counts, generate_s=round(t_gen, 2),
+                    png_bytes=on_disk, raw_bytes=n_frames * lit.width * lit.height)
+        steps = line["steps"]
+        want = {"corner_response_nms": steps + 1, "extract_patches": 4 * (steps + 1),
+                "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+        if counts != want:
+            fails.append(f"(c) launches {counts}, want {want}")
+        if line["pose_ok"] < steps - POSE_OK_SLACK:
+            fails.append(f"(c) pose_ok on {line['pose_ok']}/{steps} frames, want >= "
+                         f"{steps - POSE_OK_SLACK}")
+        headline = HANDOFF.get("headline_ate", ATE_GATE_M)
+        gate = max(LIGHTING_ATE_FACTOR * headline, LIGHTING_ATE_FLOOR_M)
+        line.update(ate_gate_m=gate, headline_ate_m=headline)
+        if n_frames == DATA_FRAMES and not done.result.get("ate_rmse_m", np.inf) < gate:
+            fails.append(f"(c) ATE {done.result.get('ate_rmse_m')} m not below {gate:.3f} m")
+        print(json.dumps(line))
+        records["corner_response_nms"]["launches_data"] = counts["corner_response_nms"]
+        records["extract_patches"]["launches_data"] = counts["extract_patches"]
+        del done
+        _free()
+
+        # (d) the dataset lanes over (c)'s layout: the sweep at B = 1 and 6,
+        # then six lanes (seeds 2023 + i), through run_multiseq_torch.main.
+        batches = []
+        run_batch = runner.run_batch
+
+        def recording(*a, **kw):
+            out = run_batch(*a, **kw)
+            batches.append(out)
+            return out
+
+        base = ["--dataset", "parking", "--data-root", str(root),
+                "--capacity", str(DATA_LANE_CAPACITY), "--steps", str(DATA_LANE_STEPS)]
+        lanes = ",".join("abcdef"[:DATA_LANES])
+        runner.run_batch = recording
+        try:
+            for argv in (["--sweep", f"1,{DATA_LANES}"], ["--sequences", lanes]):
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                rc = runner.main(base + argv)
+                dt = time.perf_counter() - t0
+                counts = dict(kernels.launch_counts)
+                mode = argv[0].lstrip("-")
+                # Each batch: its bootstraps (single launches), then a warm-up
+                # and a timed rollout; B = 1 launches the single kernels.
+                n = 2 * DATA_LANE_STEPS
+                sizes = [1, DATA_LANES] if mode == "sweep" else [DATA_LANES]
+                want = {"corner_response_nms": sum(sizes) + (n if 1 in sizes else 0),
+                        "extract_patches": 4 * sum(sizes) + (4 * n if 1 in sizes else 0),
+                        "corner_response_nms_batched": n,
+                        "extract_patches_batched": 4 * n}
+                print(json.dumps(dict(phase="data", part=f"lanes_{mode}", rc=rc,
+                                      seconds=round(dt, 2), launches=counts, want=want)))
+                if rc != 0 or counts != want:
+                    fails.append(f"(d) {mode}: exit {rc}, launches {counts}, want {want}")
+        finally:
+            runner.run_batch = run_batch
+        fps, ates, _, poses = batches[-1]
+        if not (np.isfinite(fps) and np.isfinite(poses).all()):
+            fails.append("(d) non-finite lanes")
+        if not all(a is not None and a <= DATA_LANE_ATE_M for a in ates):
+            fails.append(f"(d) lane ATEs {ates}, want each <= {DATA_LANE_ATE_M} m")
+        records["corner_response_nms_batched"]["launches_data"] = counts[
+            "corner_response_nms_batched"]
+        records["extract_patches_batched"]["launches_data"] = counts["extract_patches_batched"]
+        del batches
+        _free()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     if fails:
         raise AssertionError("; ".join(fails))
 
@@ -1119,13 +1340,18 @@ def main(argv=None) -> int:
     parser.add_argument("--sift-frames", type=int, default=150,
                         help="frames of the sift-tracker run (default 150; the ATE "
                              "gate applies at 150 and at 600)")
+    parser.add_argument("--data-frames", type=int, default=DATA_FRAMES,
+                        help=f"frames of the varying-lighting city the data phase writes "
+                             f"and reads (default {DATA_FRAMES}; the ATE gate applies only "
+                             "at full length)")
     parser.add_argument("--loop-frames", type=int, default=LOOP_FRAMES,
                         help=f"frames of the loop-closure run (default {LOOP_FRAMES}; the "
                              "graph and ATE gates apply only at full length)")
     args = parser.parse_args(argv)
     if min(args.frames, args.multiseq_frames, args.harris_frames, args.sift_frames,
-           args.loop_frames) < 4:
-        parser.error("every --*frames must be at least 4")
+           args.loop_frames) < 4 or args.data_frames < 31:
+        parser.error("every --*frames must be at least 4, --data-frames at least 31 "
+                     "(the lighting curves' smoothing window)")
 
     import torch
 
@@ -1214,6 +1440,7 @@ def main(argv=None) -> int:
         run("k2b", phase_k2b, dev, records["extract_patches_batched"])
     run("headline", phase_headline, dev, args.frames, records)
     run("multiseq", phase_multiseq, dev, args.multiseq_frames, records)
+    run("data", phase_data, dev, args.data_frames, records)
     run("harris", phase_harris, dev, args.harris_frames, records)
     run("sift", phase_sift, dev, args.sift_frames, records)
     run("loop", phase_loop, dev, args.loop_frames, records)

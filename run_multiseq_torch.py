@@ -1,6 +1,21 @@
 #!/usr/bin/env python
 """Multi-sequence VO evaluation on CUDA GPUs — the PyTorch/CUDA twin of
-`run_multiseq.py --full`, `--multihost` and `--seqpar-shards`.
+`run_multiseq.py`: its dataset lanes and `--sweep`, `--full`, `--multihost`
+and `--seqpar-shards`.
+
+The default mode reads one disk sequence a lane (`--dataset`, `--data-root`,
+`--sequences`; vo_tpu_torch.data.Sequence), bootstraps each lane alone (seed
+2023 + lane), stacks the frames of each lane's ping-pong frame plan into one
+(steps, B, H, W) f32 tensor on the device and rolls all lanes through
+`batched_vo_rollout` once to warm up and once timed. It prints
+`multiseq_throughput` (aggregate frames/s, per-lane ATE over each lane's true
+forward pass); `--sweep 1,2,4` replicates the first sequence B times and
+prints `multiseq_scaling`. On one card the lanes roll in one process (the
+mesh placement, `make_sharded_rollout`, is the multihost worker's).
+
+    python run_multiseq_torch.py --dataset parking --data-root ./data \
+        --sequences a,b,c,d,e,f --steps 40
+    python run_multiseq_torch.py --dataset parking --data-root ./data --sweep 1,6
 
 Renders six DISTINCT synthetic city sequences (varied seeds and paths, one
 stop-and-go) on the device, bootstraps each lane on its own, stacks the
@@ -30,8 +45,7 @@ and broadcasts the window at the end of every chunk; all ranks refine it with
 landmarks back by uid and applies the newest keyframe's rigid correction to
 the live pose. It reports ATE with and without that back-end. Ranks use NCCL
 when each has a card of its own and Gloo otherwise (`--backend` chooses);
-every line says which. The dataset lanes and the batch-size sweep of
-run_multiseq.py wait for the KITTI data (ROADMAP).
+every line says which.
 """
 
 from __future__ import annotations
@@ -52,6 +66,14 @@ RANK_TIMEOUT_S = 900  # a cluster that takes longer is killed
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--dataset", choices=["kitti", "malaga", "parking"], default="kitti")
+    p.add_argument("--data-root", default="./data")
+    p.add_argument("--sequences", default="05",
+                   help="comma-separated KITTI sequence ids (one per batch lane)")
+    p.add_argument("--sweep", default="",
+                   help="comma-separated batch sizes: replicate sequence 0 and "
+                        "report aggregate fps per size")
+    p.add_argument("--steps", type=int, default=40)
     p.add_argument("--full", action="store_true",
                    help="the full-length multi-sequence accuracy evaluation")
     p.add_argument("--full-frames", type=int, default=600,
@@ -163,6 +185,110 @@ def lane_report(name: str, est: np.ndarray, gt: np.ndarray) -> dict:
     ate = ate_rmse(positions_from_poses(est), positions_from_poses(gt))
     return {"lane": name, "ate_rmse_m": round(float(ate), 3),
             "finite": bool(np.isfinite(est).all())}
+
+
+def run_batch(args, seq_ids, cfg, dev):
+    """The dataset lanes `seq_ids`: bootstrapped alone (seed 2023 + lane),
+    stacked, rolled `args.steps` steps in lockstep once to warm up and once
+    timed, each from the bootstrapped states. Returns (aggregate frames/s,
+    per-lane ATE or None, boot poses (B, 4, 4), step poses (N, B, 4, 4))."""
+    import torch
+
+    from vo_tpu_torch.data import Sequence
+    from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses
+    from vo_tpu_torch.models.pipeline import bootstrap
+    from vo_tpu_torch.parallel.multihost import frame_plan
+    from vo_tpu_torch.parallel.multiseq import batched_vo_rollout, stack_states
+
+    b = len(seq_ids)
+    seqs = [Sequence(args.dataset, path=args.data_root, kitti_sequence=s) for s in seq_ids]
+    plans = [frame_plan(len(seq), args.steps) for seq in seqs]
+    decoded = {}  # path -> frame on the device: lanes that share a file decode it once
+
+    def frame(seq, i):
+        path = seq.frames[i]
+        if path not in decoded:
+            decoded[path] = torch.from_numpy(seq.get_frame(i)).to(dev)
+        return decoded[path]
+
+    K = torch.as_tensor(seqs[0].K, dtype=torch.float32, device=dev)
+    Ks = K.expand(b, 3, 3).contiguous()
+    states = [bootstrap(frame(seq, 0), frame(seq, 2), K, cfg,
+                        torch.Generator(device=dev).manual_seed(2023 + i))[0]
+              for i, seq in enumerate(seqs)]
+    stack = torch.stack([torch.stack([frame(seq, plan[n]) for seq, plan in zip(seqs, plans)])
+                         for n in range(args.steps)])  # (N, B, H, W)
+    decoded.clear()
+    samplers = [st.rng.get_state() for st in states]
+
+    def lanes():
+        # The rollout draws from the lanes' samplers: rewind them, so the
+        # warm-up and the timed rollout make the same draws.
+        for st, saved in zip(states, samplers):
+            st.rng.set_state(saved)
+        return stack_states(states)
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    batched_vo_rollout(lanes(), stack, Ks, cfg)  # warm-up
+    batched = lanes()
+    sync()
+    t0 = time.perf_counter()
+    _, outs = batched_vo_rollout(batched, stack, Ks, cfg)
+    sync()
+    dt = time.perf_counter() - t0
+    boot = torch.stack([st.pose for st in states]).cpu().numpy()
+    poses = outs.pose.cpu().numpy()
+
+    # Per-lane ATE over the true forward pass (frames 3..len-1) that ran.
+    ates = []
+    for i, seq in enumerate(seqs):
+        if seq.gt_poses is None:
+            ates.append(None)
+            continue
+        fwd = min(len(seq) - 3, args.steps)
+        est = lane_poses(boot[i], poses[:fwd, i])
+        gt = seq.gt_poses[[0, 2] + list(range(3, 3 + fwd))]
+        ates.append(round(float(ate_rmse(positions_from_poses(est),
+                                         positions_from_poses(gt))), 5))
+    return args.steps * b / dt, ates, boot, poses
+
+
+def run_dataset(args) -> int:
+    """The dataset lanes (`--sequences`) or the batch-size sweep (`--sweep`)."""
+    import torch
+
+    from vo_tpu_torch.utils.config import DetectorConfig, KLTConfig, VOConfig
+
+    if _no_cuda(args):
+        return 2
+    dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
+    plain = {}
+    if args.no_kernels:
+        plain = dict(detector=DetectorConfig(use_pallas=False),
+                     klt=KLTConfig(use_pallas=False))
+    cfg = VOConfig(capacity=args.capacity, **plain)
+    device = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    if args.sweep:
+        rows = []
+        base = None
+        for b in [int(x) for x in args.sweep.split(",")]:
+            fps = run_batch(args, [args.sequences.split(",")[0]] * b, cfg, dev)[0]
+            base = base or fps
+            rows.append({"batch": b, "agg_fps": round(fps, 2),
+                         "scaling": round(fps / base, 3)})
+            print(json.dumps(rows[-1]), flush=True)
+        print(json.dumps({"metric": "multiseq_scaling", "rows": rows}))
+        return 0
+    seq_ids = args.sequences.split(",")
+    fps, ates, _, _ = run_batch(args, seq_ids, cfg, dev)
+    print(json.dumps({
+        "metric": "multiseq_throughput",
+        "batch": len(seq_ids),
+        "agg_fps": round(fps, 2),
+        "ate_rmse_m": ates,
+        "device": device,
+    }))
+    return 0
 
 
 def run_full(args) -> int:
@@ -419,10 +545,7 @@ def main(argv=None) -> int:
         return run_seqpar(args)
     if args.full:
         return run_full(args)
-    print("run_multiseq_torch: choose --full, --multihost or --seqpar-shards (the "
-          "dataset lanes and --sweep of run_multiseq.py are listed in ROADMAP.md as "
-          "still to port)", file=sys.stderr)
-    return 2
+    return run_dataset(args)
 
 
 if __name__ == "__main__":

@@ -3,25 +3,37 @@
 `run_vo.py` over `vo_tpu_torch`.
 
 Headless and typed, flag for flag as `run_vo.py`: the device owns the
-per-frame step; the host collects poses and stats, registers pose-graph
-keyframes, writes checkpoints, and reports ATE/RPE against exact ground
-truth at the end. The synthetic city is rendered on the device (no files).
+per-frame step; the host decodes frames, collects poses and stats, registers
+pose-graph keyframes, writes checkpoints, reports ATE/RPE against ground
+truth where the dataset has it, and writes the overlays and figures asked
+for.
+
+`--dataset kitti|malaga|parking` reads a layout under `--data-root`
+(vo_tpu_torch.data.Sequence): frames come from the native decode-ahead ring
+(csrc/frame_loader.cc) unless `--no-prefetch`, are gathered a chunk at a
+time in pinned host memory and copied to the card without blocking.
+`--dataset synthetic` renders the city on the device (no files). The JAX
+package's `--dataset synthetic` reads the same city from disk; the port's way
+to do that is `generate` (vo_tpu_torch.data.synthetic) into `D/parking`,
+then `--dataset parking --data-root D`.
 
 Examples:
   python run_vo_torch.py --dataset synthetic --quiet
+  python run_vo_torch.py --dataset parking --data-root ./data --chunk 16 --quiet
+  python run_vo_torch.py --dataset kitti --data-root ./data --kitti-sequence 05
   python run_vo_torch.py --tracker harris --max-frames 150
   python run_vo_torch.py --spec loop --pose-graph --chunk 16 --quiet
   python run_vo_torch.py --device cpu --max-frames 12 --capacity 128
 
 Runs on `cuda` unless `--device cpu` is given, and exits 2 without a GPU
-otherwise. Not ported (each exits 2 and names its ROADMAP item): the disk
-datasets (`--dataset kitti|malaga|parking`) and the matplotlib figures
-(`--viz-dir`, `--trajectory-pdf`, `--map-pdf`, `--landmarks-pdf`).
+otherwise. `--viz-dir` (cv2) and the PDF figures (matplotlib) exit 2 before
+the run when their package is missing.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import sys
@@ -31,16 +43,19 @@ from typing import Any, Callable, NamedTuple
 TAG = "[vo_tpu_torch]"
 BOOTSTRAP_SEED = 2023
 
-_UNPORTED_FIGURES = (
-    "{flag} is not ported: the matplotlib figures of utils/viz.py wait for "
-    "their packages (ROADMAP Queue 1, 'Still to port': figures)"
-)
+# The figure flags and the package each needs (utils/viz.py imports them
+# lazily, as the reference does).
+FIGURE_PACKAGES = {"viz_dir": "cv2", "trajectory_pdf": "matplotlib",
+                   "map_pdf": "matplotlib", "landmarks_pdf": "matplotlib"}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=" ".join(__doc__.split("\n")[:2]))
     p.add_argument("--dataset", choices=["kitti", "malaga", "parking", "synthetic"],
                    default="synthetic")
+    p.add_argument("--data-root", default="./data")
+    p.add_argument("--kitti-sequence", default="05")
+    p.add_argument("--increment", type=int, default=1)
     p.add_argument("--spec", choices=["default", "loop"], default="default",
                    help="synthetic sequence: the 600-frame city with two turns, or "
                         "the 1,169-frame closed circuit with a revisit")
@@ -62,10 +77,13 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", default="", help="write checkpoints here (.npz)")
     p.add_argument("--checkpoint-every", type=int, default=100)
     p.add_argument("--resume", default="", help="resume from a checkpoint (.npz)")
-    p.add_argument("--viz-dir", default="", help="(not ported)")
-    p.add_argument("--trajectory-pdf", default="", help="(not ported)")
-    p.add_argument("--map-pdf", default="", help="(not ported)")
-    p.add_argument("--landmarks-pdf", default="", help="(not ported)")
+    p.add_argument("--viz-dir", default="",
+                   help="write keypoint-overlay PNGs here (per-frame stepping; needs cv2)")
+    p.add_argument("--trajectory-pdf", default="",
+                   help="write the final trajectory figure (matplotlib)")
+    p.add_argument("--map-pdf", default="", help="write the final 3-D point-cloud figure")
+    p.add_argument("--landmarks-pdf", default="",
+                   help="write the per-frame landmark-count history figure")
     p.add_argument("--save-npz", default="", help="save poses/stats to .npz")
     p.add_argument("--profile-dir", default="", help="torch.profiler trace directory")
     p.add_argument("--debug-validate", action="store_true",
@@ -73,6 +91,9 @@ def parse_args(argv=None):
     p.add_argument("--chunk", type=int, default=1,
                    help="frames per `vo_rollout` chunk (1 = per-frame stepping; >1 = "
                         "one fetch per chunk)")
+    p.add_argument("--no-prefetch", action="store_true",
+                   help="decode disk frames in the loop instead of the native "
+                        "decode-ahead ring")
     p.add_argument("--no-kernels", action="store_true",
                    help="route detection/LK through the plain PyTorch chains instead "
                         "of the CUDA kernels (fault isolation)")
@@ -104,7 +125,7 @@ class Run(NamedTuple):
     stats: list  # one dict per step
     state: Any  # the final VOState
     backend: Any  # the PoseGraphBackend, or None
-    seq: Any  # the rendered Sequence
+    seq: Any  # the RenderedSequence, or the disk data.Sequence
 
 
 def _sync(dev) -> None:
@@ -112,6 +133,69 @@ def _sync(dev) -> None:
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+class DiskFrames:
+    """The frames of a disk `Sequence` on the device, a chunk at a time:
+    decoded by the native ring (`seq.prefetch`) or in the loop, gathered in
+    one host buffer (pinned for a card) and copied with `non_blocking`. The
+    buffer is refilled only once the previous copy has landed. `wait_s`
+    counts the seconds the loop spent waiting on decoded frames."""
+
+    def __init__(self, seq, dev, chunk: int, prefetch: bool = True):
+        import torch
+
+        self.seq, self.dev, self.chunk = seq, dev, chunk
+        self.prefetch = prefetch
+        self.ring = None
+        self.native_ring = False
+        self.wait_s = 0.0
+        h, w = seq.get_frame(0).shape
+        self.host = torch.empty((chunk, h, w), dtype=torch.float32,
+                                pin_memory=dev.type == "cuda")
+        self.copied = None  # the CUDA event of the last copy out of `host`
+
+    def one(self, i: int):
+        """Frame i alone (the bootstrap pair), decoded in the loop."""
+        import torch
+
+        return torch.from_numpy(self.seq.get_frame(i)).to(self.dev)
+
+    def start(self, first: int) -> None:
+        """Frames first, first+1, ... come next, in order (the ring decodes
+        up to two chunks ahead; without the native library `seq.prefetch`
+        decodes each frame when it is asked for)."""
+        from vo_tpu_torch.data.native_loader import FramePrefetcher
+
+        self.first = first
+        if self.prefetch:
+            self.ring = self.seq.prefetch(ring=max(8, 2 * self.chunk), start=first)
+            self.native_ring = isinstance(self.ring, FramePrefetcher)
+
+    def take(self, i: int, n: int):
+        """Frames i..i+n-1 as an (n, H, W) f32 tensor on the device."""
+        import torch
+
+        if self.copied is not None:
+            self.copied.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n):
+            out = self.host[k].numpy()
+            if self.ring is not None:
+                self.ring.get(i + k - self.first, out=out)
+            else:
+                out[...] = self.seq.get_frame(i + k)
+        self.wait_s += time.perf_counter() - t0
+        if self.dev.type != "cuda":
+            return self.host[:n].clone()
+        imgs = self.host[:n].to(self.dev, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        return imgs
+
+    def close(self) -> None:
+        if self.ring is not None:
+            self.ring.close()
 
 
 def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
@@ -122,32 +206,37 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     import numpy as np
     import torch
 
-    from vo_tpu_torch.data import UNPORTED_DATASET
-
-    if args.dataset != "synthetic":
-        print(UNPORTED_DATASET.format(name=args.dataset), file=sys.stderr)
-        return 2, None
-    for flag in ("viz_dir", "trajectory_pdf", "map_pdf", "landmarks_pdf"):
+    for flag, package in FIGURE_PACKAGES.items():
         if getattr(args, flag):
-            print(_UNPORTED_FIGURES.format(flag="--" + flag.replace("_", "-")),
-                  file=sys.stderr)
-            return 2, None
+            try:
+                importlib.import_module(package)
+            except ImportError:
+                print(f"run_vo_torch: --{flag.replace('_', '-')} needs the {package} "
+                      "package, which is not installed", file=sys.stderr)
+                return 2, None
     if args.device == "cuda" and not torch.cuda.is_available():
         print("run_vo_torch: no CUDA device visible (pass --device cpu to run on "
               "the CPU)", file=sys.stderr)
         return 2, None
     dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
 
-    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.data import Sequence, synthetic
     from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
+    from vo_tpu_torch.models.feature_table import STATE_TRIANGULATED
     from vo_tpu_torch.models.pipeline import StepOutput, bootstrap, vo_rollout, vo_step
     from vo_tpu_torch.utils import viz
     from vo_tpu_torch.utils.checkpoint import load_backend, load_checkpoint, save_checkpoint
     from vo_tpu_torch.utils.config import BAConfig, DetectorConfig, KLTConfig, VOConfig
 
-    spec = synthetic.LOOP_SPEC if args.spec == "loop" else synthetic.DEFAULT_SPEC
-    n_frames = spec.num_frames if args.max_frames <= 0 else min(args.max_frames,
-                                                                spec.num_frames)
+    disk = args.dataset != "synthetic"
+    if disk:
+        seq = Sequence(args.dataset, path=args.data_root, increment=args.increment,
+                       kitti_sequence=args.kitti_sequence)
+        total = len(seq)
+    else:
+        spec = synthetic.LOOP_SPEC if args.spec == "loop" else synthetic.DEFAULT_SPEC
+        total = spec.num_frames
+    n_frames = total if args.max_frames <= 0 else min(args.max_frames, total)
     cfg = VOConfig(
         capacity=args.capacity,
         tracker=args.tracker,
@@ -165,14 +254,25 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     if n_frames <= gap:
         print(f"need more than {gap} frames, got {n_frames}", file=sys.stderr)
         return 2, None
+    chunk = max(1, args.chunk)
+    if chunk > 1 and (args.viz_dir or args.debug_validate):
+        print(f"{TAG} --viz-dir/--debug-validate need per-frame stepping; falling back "
+              "to --chunk 1")
+        chunk = 1
 
-    t_render = time.time()
-    seq = synthetic.render_sequence(spec, dev, n_frames)
-    _sync(dev)
-    K = seq.K
     dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"{TAG} {args.dataset}/{args.spec}: {n_frames} frames rendered in "
-          f"{time.time() - t_render:.1f}s, device={dev_name}")
+    if disk:
+        K = torch.as_tensor(seq.K, dtype=torch.float32, device=dev)
+        frames = DiskFrames(seq, dev, chunk, prefetch=not args.no_prefetch)
+        print(f"{TAG} {args.dataset}: {n_frames} frames under {args.data_root}, "
+              f"device={dev_name}")
+    else:
+        t_render = time.time()
+        seq = synthetic.render_sequence(spec, dev, n_frames)
+        _sync(dev)
+        K = seq.K
+        print(f"{TAG} {args.dataset}/{args.spec}: {n_frames} frames rendered in "
+              f"{time.time() - t_render:.1f}s, device={dev_name}")
 
     profiler = None
     if args.profile_dir:
@@ -190,8 +290,10 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
         start_frame = int(state.frame_idx) + 1
         print(f"{TAG} resumed from {args.resume} at frame {start_frame - 1}")
     else:
+        first, second = ((frames.one(0), frames.one(gap)) if disk
+                         else (seq.frames[0], seq.frames[gap]))
         state, out = bootstrap(
-            seq.frames[0], seq.frames[gap], K, cfg,
+            first, second, K, cfg,
             torch.Generator(device=dev).manual_seed(BOOTSTRAP_SEED),
         )
         _sync(dev)
@@ -209,11 +311,8 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     first_time = 0.0
     first_i = start_frame
     fps_meter = viz.FpsMeter()
-    chunk = max(1, args.chunk)
-    if chunk > 1 and args.debug_validate:
-        print(f"{TAG} --debug-validate needs per-frame stepping; falling back to "
-              "--chunk 1")
-        chunk = 1
+    if disk:
+        frames.start(start_frame)
 
     backend = None
     next_pg = start_frame
@@ -240,15 +339,16 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
             )
     pg_seconds = 0.0
 
-    def maybe_pose_graph(i):
-        """Register frame i as a pose-graph keyframe if its cadence is due
-        (off the per-frame path, once per pg_every frames)."""
+    def maybe_pose_graph(i, img):
+        """Register frame i (`img` on the device) as a pose-graph keyframe if
+        its cadence is due (off the per-frame path, once per pg_every
+        frames)."""
         nonlocal next_pg, pg_seconds
         if backend is None or i < next_pg:
             return
         next_pg = i + args.pg_every
         t0 = time.time()
-        info = backend.on_keyframe(seq.frames[i], state.pose, state.table, i)
+        info = backend.on_keyframe(img, state.pose, state.table, i)
         pg_seconds += time.time() - t0
         if info and not args.quiet:
             print(
@@ -287,13 +387,14 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     i = start_frame
     while i < n_frames:
         n = min(chunk, n_frames - i)
+        imgs = frames.take(i, n) if disk else seq.frames[i:i + n]
         t0 = time.time()
         if chunk > 1:
             # One `vo_rollout` and one fetch per chunk; the tail chunk is
             # simply shorter.
-            state, outs = vo_rollout(state, seq.frames[i:i + n], K, cfg)
+            state, outs = vo_rollout(state, imgs, K, cfg)
         else:
-            state, out = vo_step(state, seq.frames[i], K, cfg)
+            state, out = vo_step(state, imgs[0], K, cfg)
             outs = StepOutput(*(f[None] for f in out))
         outs_np = to_host(outs)  # the copy waits for the device
         dt = time.time() - t0
@@ -303,7 +404,7 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
             record(i + k, StepOutput(*(f[k] for f in outs_np)), dt / n)
             fps_meter.tick()
         last = i + n - 1
-        maybe_pose_graph(last)
+        maybe_pose_graph(last, imgs[n - 1])
         maybe_checkpoint(last)  # after the pose graph: the checkpoint includes it
         if args.debug_validate:
             from vo_tpu_torch.models.feature_table import debug_validate
@@ -311,6 +412,14 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
             violations = debug_validate(state.table)
             if violations:
                 raise AssertionError(f"frame {last}: invariants violated: {violations}")
+        if args.viz_dir:
+            from vo_tpu_torch.data import png
+
+            tab = state.table
+            rgb = viz.keypoint_overlay(imgs[0].cpu().numpy(), tab.xy.cpu().numpy(),
+                                       tab.state.cpu().numpy(), tab.track_xy.cpu().numpy())
+            os.makedirs(args.viz_dir, exist_ok=True)
+            png.write_png(os.path.join(args.viz_dir, f"{i:06d}.png"), rgb)
         if observer is not None:
             observer(last, state, backend)
         i += n
@@ -320,6 +429,11 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     fps = len(steady) / max(sum(steady), 1e-9)
     print(f"{TAG} {len(stats)} steps in {wall:.1f}s "
           f"(first chunk {first_time:.1f}s, steady-state {fps:.2f} fps)")
+    if disk:
+        frames.close()
+        print(f"{TAG} frames decoded by {seq.decoder}; the loop waited "
+              f"{frames.wait_s:.2f}s on "
+              f"{'the decode-ahead ring' if frames.native_ring else 'decoding'}")
 
     if profiler is not None:
         profiler.stop()
@@ -327,7 +441,10 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
         profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
 
     est = np.stack(poses)
-    result = {"fps_steady": fps, "frames": len(stats) + 2}
+    result = {"fps_steady": fps, "frames": len(stats) + 2,
+              "decoder": seq.decoder if disk else None,
+              "prefetch": (dict(ring=frames.native_ring, wait_s=frames.wait_s)
+                           if disk else None)}
 
     est_raw = None
     if backend is not None and backend.n_nodes >= 2:
@@ -377,7 +494,8 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
         result["diverged_at_frame"] = int(frame_ids[n_ok])
         print(f"{TAG} WARNING: pose non-finite from frame {frame_ids[n_ok]}; "
               f"metrics over first {n_ok} poses")
-    if n_ok >= 3:
+    has_gt = seq.gt_poses is not None and len(seq.gt_poses) >= n_frames
+    if has_gt and n_ok >= 3:
         gt = seq.gt_poses[frame_ids][:n_ok]
         est_m = est[:n_ok]
         ate = ate_rmse(positions_from_poses(est_m), positions_from_poses(gt))
@@ -392,6 +510,29 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
             result.update(ate_rmse_m_pre_pg=float(ate_raw))
             print(f"{TAG} ATE RMSE before pose graph: {ate_raw:.4f} m "
                   f"({ate_raw / max(ate, 1e-9):.1f}x)")
+
+    name = args.dataset if disk else f"{args.dataset}/{args.spec}"
+    if args.trajectory_pdf or args.map_pdf:
+        tab = state.table
+        lm = tab.landmark[tab.state == STATE_TRIANGULATED].cpu().numpy()
+    if args.trajectory_pdf:
+        gtp = positions_from_poses(seq.gt_poses[frame_ids]) if has_gt else None
+        viz.save_trajectory_plot(args.trajectory_pdf, positions_from_poses(est), gtp, lm,
+                                 title=f"{name} ({len(frame_ids)} frames)")
+        print(f"{TAG} wrote {args.trajectory_pdf}")
+    if args.map_pdf:
+        viz.save_point_cloud_plot(args.map_pdf, lm, est, title=f"{name} map")
+        print(f"{TAG} wrote {args.map_pdf}")
+    if args.landmarks_pdf:
+        viz.save_landmark_history_plot(
+            args.landmarks_pdf,
+            np.asarray([s["frame"] for s in stats]),
+            np.asarray([s["tri"] for s in stats]),
+            np.asarray([s["cand"] for s in stats]),
+            np.asarray([s["tracked"] for s in stats]),
+            title=f"{name} landmark history",
+        )
+        print(f"{TAG} wrote {args.landmarks_pdf}")
 
     return 0, Run(result=result, poses=est, poses_raw=est_raw, frame_ids=frame_ids,
                   stats=stats, state=state, backend=backend, seq=seq)

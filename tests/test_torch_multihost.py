@@ -50,13 +50,36 @@ def test_two_rank_worker_matches_the_single_device_solver(mode):
 
 
 def test_worker_refuses_what_is_not_ported():
-    for argv, word in ((["--dataset", "kitti", "--device", "cpu"], "disk loaders"),
-                       (["--device", "cuda"], "CUDA")):
+    """Every dataset is ported now: what the worker still refuses is a card
+    it does not have (exit 2) and a dataset it does not know (argparse)."""
+    for argv, word, code in ((["--device", "cuda"], "CUDA", 2),
+                             (["--dataset", "tum", "--device", "cpu"], "invalid choice", 2)):
         env = {**ENV, "CUDA_VISIBLE_DEVICES": ""}
         proc = subprocess.run(
             multihost.worker_cmd("localhost:1", 1, 0, argv), cwd=ROOT, env=env,
             capture_output=True, text=True, timeout=120)
-        assert proc.returncode == 2 and word in proc.stderr
+        assert proc.returncode == code and word in proc.stderr
+
+
+def test_worker_reads_a_parking_layout(tmp_path):
+    """Two ranks, each rolling 2 lanes over a parking layout on disk (the
+    small city written by `generate`), cropped to 96x128: the reference's
+    `--dataset` / `--data-root` path of the worker."""
+    import dataclasses
+
+    from vo_tpu_torch.data import synthetic as tsyn
+
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, num_frames=8, width=160, height=120,
+                               focal=104.0)
+    tsyn.generate(str(tmp_path / "parking"), spec, verbose=False, device="cpu")
+    rep = multihost.run_cluster(2, ["--dataset", "parking", "--data-root", str(tmp_path),
+                                    "--crop", "96x128", "--lanes-per-device", "2",
+                                    "--steps", "6", "--capacity", "128", "--device", "cpu"],
+                                timeout=CLUSTER_TIMEOUT_S, env=ENV)
+    assert rep["metric"] == "multihost_vo" and rep["world_size"] == 2
+    assert rep["frame"] == [96, 128] and rep["lanes_global"] == 4
+    assert rep["gsum_ok"] and rep["finite"] and rep["agg_fps"] > 0
+    assert multihost.frame_plan(8, 6) == [3, 4, 5, 6, 7, 6]
 
 
 def test_launch_kills_the_cluster_when_a_rank_fails():

@@ -852,9 +852,11 @@ def test_run_multiseq_torch_needs_cuda_unless_asked():
                           capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode != 0
     assert '"metric"' not in proc.stdout
+    # The default mode (the dataset lanes) needs the card as well.
     proc = subprocess.run([sys.executable, "run_multiseq_torch.py"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300, env=env)
-    assert proc.returncode != 0 and "--full" in proc.stderr
+    assert proc.returncode != 0 and "--device cpu" in proc.stderr
+    assert '"metric"' not in proc.stdout
 
 
 def test_run_multiseq_torch_on_cpu_small(monkeypatch, capsys):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it never imports, opens or executes
 anything of jax or vo_tpu; its own copies of the reference's numpy modules
-(config, city generators, evaluator) are held equal to the reference here; and
+(config, city generators, evaluator, the lighting model, the render digest,
+the loaders' parsing) are held equal to the reference here; and
 chip_smoke.py refuses to run without a GPU."""
 
 import ast
@@ -41,9 +42,13 @@ SLICE_MODULES = [
     "vo_tpu_torch.models.pose_graph",
     "vo_tpu_torch.models.keyframe_db",
     "vo_tpu_torch.models.backend",
+    "vo_tpu_torch.data",
     "vo_tpu_torch.data.city",
     "vo_tpu_torch.data.synthetic",
     "vo_tpu_torch.data.evaluate",
+    "vo_tpu_torch.data.png",
+    "vo_tpu_torch.data.native_loader",
+    "vo_tpu_torch.data.loaders",
     "vo_tpu_torch.utils.config",
     "vo_tpu_torch.utils.checkpoint",
     "vo_tpu_torch.utils.viz",
@@ -320,3 +325,36 @@ def test_unported_trackers_raise(tracker):
     assert state.table.desc.shape == (32, VOConfig(tracker=tracker).desc_dim)
     with pytest.raises(ValueError, match="unknown tracker"):
         bootstrap(img, img, torch.eye(3), VOConfig(tracker=tracker + "2"), torch.Generator())
+
+
+def _function_ast(module, qualname: str) -> str:
+    """The AST of a function or method without its docstring."""
+    import inspect
+    import textwrap
+
+    obj = module
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    node = ast.parse(textwrap.dedent(inspect.getsource(obj))).body[0]
+    body = node.body
+    if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+        node.body = body[1:]
+    return ast.dump(node)
+
+
+@pytest.mark.parametrize("name", ["synthetic._lighting_curves", "synthetic._apply_lighting",
+                                  "synthetic._spec_digest", "loaders.Sequence._load_kitti",
+                                  "loaders.Sequence._load_malaga",
+                                  "loaders.Sequence.__post_init__"])
+def test_data_copies_are_the_reference_code(name):
+    """The lighting model, the render digest and the loaders' parsing are
+    the reference's code statement for statement (docstrings aside), so a
+    change there shows here."""
+    import importlib
+
+    mod, qual = name.split(".", 1)
+    jmod = importlib.import_module(f"vo_tpu.data.{mod}")
+    tmod = importlib.import_module(f"vo_tpu_torch.data.{mod}")
+    assert _function_ast(tmod, qual) == _function_ast(jmod, qual)
+    if mod == "synthetic":
+        assert tmod._FORMAT_VERSION == jmod._FORMAT_VERSION

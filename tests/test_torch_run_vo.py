@@ -1,15 +1,20 @@
 """The `run_vo_torch.py` entry point on the CPU at a small size: every
 tracker, chunked stepping, checkpoint and resume, the pose-graph back-end,
-the flags that are not ported, and the refusal to run without a GPU."""
+the disk datasets and the figures, and the refusal to run without a GPU."""
 
 import dataclasses
 import json
+import os
+import shutil
+import sys
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import run_vo_torch
+from vo_tpu_torch.data import Sequence
 from vo_tpu_torch.data import synthetic as tsyn
 
 torch.set_num_threads(1)
@@ -132,19 +137,96 @@ def test_pose_graph_culls_at_capacity(small_city, capsys):
     assert rc == 0 and result["pg_nodes"] == 4 and result["pg_culled"] >= 3
 
 
-@pytest.mark.parametrize("argv,word", [
-    (["--dataset", "kitti"], "disk loaders"),
-    (["--dataset", "parking"], "disk loaders"),
-    (["--viz-dir", "x"], "--viz-dir"),
-    (["--trajectory-pdf", "x.pdf"], "--trajectory-pdf"),
-    (["--map-pdf", "x.pdf"], "--map-pdf"),
-    (["--landmarks-pdf", "x.pdf"], "--landmarks-pdf"),
-])
-def test_unported_flags_exit_2_and_say_why(capsys, argv, word):
-    rc = run_vo_torch.main(["--device", "cpu", *argv])
+@pytest.fixture(scope="module")
+def city_on_disk(tmp_path_factory):
+    """The first 10 frames of the small city, written by `generate`, as a
+    parking tree and as a KITTI tree (image_0, calib.txt P0, poses/05.txt)."""
+    root = tmp_path_factory.mktemp("data")
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, num_frames=10, **SMALL)
+    park = root / "parking"
+    tsyn.generate(str(park), spec, verbose=False, device="cpu")
+    kitti = root / "kitti" / "05"
+    (kitti / "image_0").mkdir(parents=True)
+    for f in sorted((park / "images").iterdir()):
+        shutil.copy(f, kitti / "image_0" / f.name)
+    P = np.hstack([np.loadtxt(park / "K.txt"), np.zeros((3, 1))])
+    (kitti / "calib.txt").write_text("P0: " + " ".join(f"{v:.12e}" for v in P.ravel()) + "\n")
+    (root / "kitti" / "poses").mkdir()
+    shutil.copy(park / "poses.txt", root / "kitti" / "poses" / "05.txt")
+    return root
+
+
+@pytest.mark.parametrize("flag", ["kitti", "parking", "--viz-dir", "--trajectory-pdf",
+                                  "--map-pdf", "--landmarks-pdf"])
+def test_disk_datasets_and_figures(small_city, capsys, tmp_path, city_on_disk, flag):
+    """Each flag the port used to refuse now runs: the kitti and parking layouts
+    (ground truth read, so ATE is reported; the decoder and the time waited
+    on frames are in the JSON line), the keypoint overlays of --viz-dir (RGB
+    PNG, one a step) and the three matplotlib figures."""
+    root = str(city_on_disk)
+    data = ["--dataset", "parking", "--data-root", root]
+    out_file = str(tmp_path / "fig.pdf")
+    argv = {"kitti": ["--dataset", "kitti", "--data-root", root],
+            "parking": data + ["--no-prefetch"],
+            "--viz-dir": data + ["--viz-dir", str(tmp_path / "viz"), "--chunk", "4"],
+            }.get(flag, data + [flag, out_file])
+    rc, result, out = drive(capsys, *argv, frames=10)
+    assert rc == 0
+    assert RESULT_KEYS <= result.keys() and result["frames"] == 9
+    assert result["decoder"] in ("native", "png", "pil")
+    assert result["prefetch"]["wait_s"] >= 0
+    assert result["prefetch"]["ring"] == (flag != "parking" and result["decoder"] == "native")
+    assert f"frames decoded by {result['decoder']}" in out
+    if flag == "--viz-dir":
+        assert "falling back to --chunk 1" in out
+        names = sorted(os.listdir(tmp_path / "viz"))
+        assert names == [f"{i:06d}.png" for i in range(3, 10)]
+        rgb = np.asarray(Image.open(tmp_path / "viz" / names[-1]))
+        assert rgb.shape == (120, 160, 3) and rgb.dtype == np.uint8
+        assert (rgb[..., 1] > rgb[..., 0]).any()  # green circles of the landmarks
+    elif flag.startswith("--"):
+        assert open(out_file, "rb").read(5) == b"%PDF-" and f"wrote {out_file}" in out
+
+
+@pytest.mark.parametrize("decoder", ["native", "png"])
+def test_parking_layout_equals_the_device_render(small_city, capsys, tmp_path, city_on_disk,
+                                                 monkeypatch, decoder):
+    """The city read from disk (generate's PNGs through the native
+    decode-ahead ring, or decoded by png.py in the loop where the native
+    library is missing, as on the card's machine) and rendered on the device
+    give the same poses bit for bit: PNG is lossless, K.txt holds spec.K()
+    to f32."""
+    from vo_tpu_torch.data import native_loader
+
+    if decoder == "native" and not native_loader.available():
+        pytest.skip(f"native loader not built: {native_loader.build_error()}")
+    if decoder == "png":
+        monkeypatch.setattr(native_loader, "available", lambda: False)
+    paths = [str(tmp_path / "disk.npz"), str(tmp_path / "device.npz")]
+    rc, disk, _ = drive(capsys, "--dataset", "parking", "--data-root", str(city_on_disk),
+                        "--chunk", "4", "--save-npz", paths[0], frames=10)
+    assert rc == 0
+    assert disk["decoder"] == decoder and disk["prefetch"]["ring"] == (decoder == "native")
+    rc, device, _ = drive(capsys, "--chunk", "4", "--save-npz", paths[1], frames=10)
+    assert rc == 0 and device["decoder"] is None and device["prefetch"] is None
+    a, b = np.load(paths[0]), np.load(paths[1])
+    np.testing.assert_array_equal(a["frame_ids"], b["frame_ids"])
+    np.testing.assert_array_equal(a["poses"], b["poses"])
+    assert disk["ate_rmse_m"] == device["ate_rmse_m"]
+    seq = Sequence("parking", path=str(city_on_disk))
+    np.testing.assert_array_equal(seq.K, tsyn.DEFAULT_SPEC.K().astype(np.float32))
+
+
+@pytest.mark.parametrize("flag,package", [("--viz-dir", "cv2"),
+                                          ("--trajectory-pdf", "matplotlib")])
+def test_figure_flags_exit_2_without_their_package(capsys, monkeypatch, flag, package):
+    """Without the package a figure needs, the flag exits 2 before the run
+    starts and names the package."""
+    monkeypatch.setitem(sys.modules, package, None)
+    rc = run_vo_torch.main(["--device", "cpu", flag, "x"])
     cap = capsys.readouterr()
     assert rc == 2 and cap.out == ""
-    assert word in cap.err and "ROADMAP" in cap.err and "not ported" in cap.err
+    assert flag in cap.err and package in cap.err
 
 
 def test_without_a_gpu_it_exits_2(capsys):
@@ -166,8 +248,7 @@ def test_flags_follow_run_vo():
 
     ours, theirs = vars(run_vo_torch.parse_args([])), vars(run_vo.parse_args([]))
     renamed = {"platform", "no_pallas"}  # --device, --no-kernels
-    disk_only = {"data_root", "kitti_sequence", "increment", "no_prefetch"}
-    assert set(theirs) - set(ours) == renamed | disk_only
+    assert set(theirs) - set(ours) == renamed
     assert set(ours) - set(theirs) == {"device", "no_kernels", "spec"}
     for name in set(ours) & set(theirs) - {"dataset"}:
         assert ours[name] == theirs[name], name

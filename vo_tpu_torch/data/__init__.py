@@ -1,8 +1,7 @@
-"""Data: the on-device synthetic-city renderer and ATE/RPE evaluation."""
+"""Host-side data layer: dataset loaders, prefetch, trajectory evaluation;
+the synthetic city renders on the device (data/synthetic.py)."""
 
-# What the entry points say for a dataset read from disk.
-UNPORTED_DATASET = (
-    "--dataset {name} is not ported: the disk loaders (kitti, malaga, parking) "
-    "wait for their image data (ROADMAP Queue 1, 'Still to port': disk loaders); "
-    "use --dataset synthetic"
-)
+from vo_tpu_torch.data.evaluate import align_umeyama, ate_rmse, rpe
+from vo_tpu_torch.data.loaders import Sequence
+
+__all__ = ["Sequence", "ate_rmse", "align_umeyama", "rpe"]

@@ -10,6 +10,14 @@ to quantization noise. The per-rect hit loop runs over chunks of rects at
 once; the nearest hit keeps the reference's tie rule (the lowest rect index
 wins).
 
+`render_sequence` applies the varying-lighting model (`_lighting_curves`,
+`_apply_lighting`: numpy copies of the reference's; `apply_lighting`: the
+same arithmetic on the device). `generate` writes a spec to disk in the
+parking layout, as the reference's `generate` does (PNG through
+`data/png.py`), so `Sequence("parking", ...)` and the reference's
+`--dataset synthetic` read the same render; `_spec_digest` is the
+reference's, so each package reuses the other's render.
+
 `multiseq_specs` holds the six lanes of the multi-sequence evaluation and
 `DISTORTED_DIST` its distorted-lens lane (run_multiseq.py --full).
 """
@@ -17,6 +25,9 @@ wins).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -191,7 +202,9 @@ def render_frames_torch(rects, tex, poses, K, width: int, height: int,
     return out
 
 
-class Sequence(NamedTuple):
+class RenderedSequence(NamedTuple):
+    """A spec rendered on the device (the disk loader is `data.Sequence`)."""
+
     frames: torch.Tensor  # (N, H, W) f32 grey levels on the device
     K: torch.Tensor  # (3, 3) f32 on the device
     gt_poses: np.ndarray  # (N, 4, 4) f32 exact w_T_c
@@ -208,13 +221,13 @@ def scene(spec):
     return rects, make_texture(spec.seed + 1)
 
 
-def render_sequence(spec, device, num_frames: int | None = None) -> Sequence:
-    """Render a constant-lighting `SyntheticSpec` on `device`; with
-    `num_frames`, that many frames of its path instead of `spec.num_frames`.
-    A path advances a fixed step a frame, so a shorter sequence is the prefix
-    of the longer one; the returned `spec` carries the length rendered."""
-    if spec.lighting != "constant":
-        raise NotImplementedError("only constant lighting renders on the device")
+def render_sequence(spec, device, num_frames: int | None = None) -> RenderedSequence:
+    """Render a `SyntheticSpec` on `device`, lit as its `lighting` says;
+    with `num_frames`, that many frames of its path instead of
+    `spec.num_frames`. A path advances a fixed step a frame, so a shorter
+    constant-lighting sequence is the prefix of the longer one (varying
+    lighting is drawn for the length rendered); the returned `spec` carries
+    that length."""
     if num_frames is not None and num_frames != spec.num_frames:
         spec = dataclasses.replace(spec, num_frames=num_frames)
     rects, tex = scene(spec)
@@ -222,23 +235,183 @@ def render_sequence(spec, device, num_frames: int | None = None) -> Sequence:
     K = spec.K()
     frames = render_frames_torch(rects, tex, poses, K, spec.width, spec.height,
                                  dist=spec.dist, device=device)
-    return Sequence(frames=frames.to(torch.float32),
-                    K=torch.as_tensor(K, dtype=torch.float32, device=device),
-                    gt_poses=poses, spec=spec)
+    if spec.lighting == "varying":
+        light = _lighting_curves(spec, poses)
+        for i in range(spec.num_frames):
+            frames[i] = apply_lighting(frames[i], *(c[i] for c in light))
+    elif spec.lighting != "constant":
+        raise ValueError(f"unknown lighting {spec.lighting!r}")
+    return RenderedSequence(frames=frames.to(torch.float32),
+                            K=torch.as_tensor(K, dtype=torch.float32, device=device),
+                            gt_poses=poses, spec=spec)
 
 
-def headline_sequence(device, num_frames: int | None = None) -> Sequence:
+def headline_sequence(device, num_frames: int | None = None) -> RenderedSequence:
     """The 640x480 city sequence of the headline run (DEFAULT_SPEC): 600
     frames, (600, 480, 640) f32 on the device (737 MB). `num_frames` renders
     only the first so many, for a short rehearsal."""
     return render_sequence(DEFAULT_SPEC, device, num_frames)
 
 
-def loop_sequence(device, num_frames: int | None = None) -> Sequence:
+def loop_sequence(device, num_frames: int | None = None) -> RenderedSequence:
     """The closed circuit with a revisit (LOOP_SPEC), the loop-closure
     testbed: 1,169 frames, (1169, 480, 640) f32 on the device (1.44 GB).
     `num_frames` renders only the first so many."""
     return render_sequence(LOOP_SPEC, device, num_frames)
+
+
+# ---------------------------------------------------------------------------
+# Varying lighting
+# ---------------------------------------------------------------------------
+
+
+def _lighting_curves(spec: SyntheticSpec, poses: np.ndarray):
+    """Per-frame (gain, bias, heading) for lighting="varying".
+
+    Deterministic from the spec seed: a smooth exposure random walk
+    (low-pass-filtered noise + slow sinusoids, gain ~ [0.8, 1.2], bias
+    ~ +-12 grey levels) plus the camera heading used for the sun-facing
+    lateral gradient."""
+    n = spec.num_frames
+    rng = np.random.default_rng(spec.seed + 77)
+    t = np.arange(n)
+    k = np.hanning(31)
+    k /= k.sum()
+    gain = (
+        1.0
+        + 0.14 * np.sin(2 * np.pi * t / 101.0)
+        + 0.06 * np.convolve(rng.standard_normal(n), k, mode="same")
+    )
+    bias = 9.0 * np.sin(2 * np.pi * t / 53.0 + 1.3) + 4.0 * np.convolve(
+        rng.standard_normal(n), k, mode="same"
+    )
+    # Camera forward axis in world = R[:, 2]; heading about +y.
+    yaw = np.arctan2(poses[:, 0, 2], poses[:, 2, 2])
+    return gain.astype(np.float32), bias.astype(np.float32), yaw
+
+
+def _apply_lighting(img_u8: np.ndarray, gain: float, bias: float,
+                    yaw: float, sun_azimuth: float = 0.9) -> np.ndarray:
+    """img' = gain*img + bias + lateral sun gradient, clipped to u8."""
+    w = img_u8.shape[1]
+    ramp = np.linspace(-1.0, 1.0, w, dtype=np.float32)[None, :]
+    sun = np.sin(yaw - sun_azimuth)
+    out = gain * img_u8.astype(np.float32) + bias + 12.0 * sun * ramp
+    return np.clip(np.rint(out), 0.0, 255.0).astype(np.uint8)
+
+
+def apply_lighting(img_u8: torch.Tensor, gain, bias, yaw,
+                   sun_azimuth: float = 0.9) -> torch.Tensor:
+    """`_apply_lighting` on the device, bit for bit: (H, W) uint8 -> uint8.
+
+    The scalars are the numpy ones of `_lighting_curves` (np.float32 from
+    `make_path`'s f32 poses): their products are formed here as numpy forms
+    them, in f32, and the image arithmetic runs in f32 in the reference's
+    order, `(gain*img + bias) + (12*sun)*ramp`, rounded half to even. (A
+    float64 yaw would move numpy to f64 and off this by a grey level.)"""
+    sun = np.sin(yaw - sun_azimuth)
+    slope = float(12.0 * sun)
+    w = img_u8.shape[-1]
+    ramp = torch.from_numpy(np.linspace(-1.0, 1.0, w, dtype=np.float32)).to(img_u8.device)
+    out = float(gain) * img_u8.to(torch.float32) + float(bias)
+    out = out + slope * ramp[None, :]
+    return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Sequence generation (parking layout) + cache
+# ---------------------------------------------------------------------------
+
+_FORMAT_VERSION = 2  # the reference's; bump there and here to invalidate renders
+
+
+def _spec_digest(spec: SyntheticSpec) -> str:
+    # The lighting field (added round 3) must not invalidate pre-existing
+    # constant-lighting renders: strip it from the repr at its default.
+    r = repr(spec).replace(", lighting='constant'", "")
+    return hashlib.sha1(f"v{_FORMAT_VERSION}|{r}".encode()).hexdigest()[:16]
+
+
+def generate(out_dir: str, spec: SyntheticSpec, verbose: bool = True,
+             device="cuda") -> str:
+    """Render `spec` on `device` into `out_dir` in the parking layout (K.txt,
+    images/img_%05d.png, poses.txt), 16 frames a chunk, each lit on the
+    device and written as 8-bit grey PNG. Idempotent: a digest marker makes
+    the second call a no-op, so tests and entry points can call it
+    unconditionally."""
+    from vo_tpu_torch.data import png
+
+    marker = os.path.join(out_dir, ".rendered.json")
+    img_dir = os.path.join(out_dir, "images")
+    digest = _spec_digest(spec)
+    if os.path.exists(marker):
+        try:
+            with open(marker) as f:
+                meta = json.load(f)
+            if meta.get("digest") == digest and len(os.listdir(img_dir)) == spec.num_frames:
+                return out_dir
+        except Exception:
+            pass
+
+    os.makedirs(img_dir, exist_ok=True)
+    rects, tex = scene(spec)
+    poses = make_path(spec.path, spec.num_frames)
+    K = spec.K()
+
+    if verbose:
+        print(
+            f"[synthetic] rendering {spec.num_frames} frames "
+            f"{spec.width}x{spec.height}, {rects.count} rects -> {out_dir}"
+        )
+    light = (
+        _lighting_curves(spec, poses) if spec.lighting == "varying" else None
+    )
+    chunk = 16
+    for lo in range(0, spec.num_frames, chunk):
+        hi = min(lo + chunk, spec.num_frames)
+        frames = render_frames_torch(
+            rects, tex, poses[lo:hi], K, spec.width, spec.height, dist=spec.dist,
+            device=device,
+        )
+        for i in range(lo, hi):
+            frame = frames[i - lo]
+            if light is not None:
+                gain, bias, yaw = light
+                frame = apply_lighting(frame, gain[i], bias[i], yaw[i])
+            png.write_png(os.path.join(img_dir, f"img_{i:05d}.png"), frame.cpu().numpy())
+        if verbose and (lo // chunk) % 8 == 0:
+            print(f"[synthetic] {hi}/{spec.num_frames}")
+
+    with open(os.path.join(out_dir, "K.txt"), "w") as f:
+        for r in range(3):
+            f.write(" ".join(f"{K[r, c]:.9g}" for c in range(3)) + "\n")
+    with open(os.path.join(out_dir, "poses.txt"), "w") as f:
+        for P in poses.astype(np.float64):
+            f.write(" ".join(f"{v:.9e}" for v in P[:3, :4].reshape(-1)) + "\n")
+    with open(os.path.join(out_dir, "spec.json"), "w") as f:
+        json.dump({"spec": repr(spec), "digest": digest}, f, indent=1)
+    with open(marker, "w") as f:
+        json.dump({"digest": digest, "frames": spec.num_frames}, f)
+    return out_dir
+
+
+def ensure_synthetic(root: str, spec: SyntheticSpec = DEFAULT_SPEC, device="cuda") -> str:
+    """Return `<root>/synthetic`, generating the default full-length city
+    sequence on `device` on first use. An existing completed render (any
+    spec — e.g. a tiny one placed there by a test, or one written by the
+    reference's `generate`) is reused as-is."""
+    base = os.path.join(root, "synthetic")
+    marker = os.path.join(base, ".rendered.json")
+    img_dir = os.path.join(base, "images")
+    if os.path.exists(marker):
+        try:
+            with open(marker) as f:
+                meta = json.load(f)
+            if len(os.listdir(img_dir)) == int(meta.get("frames", -1)):
+                return base
+        except Exception:
+            pass
+    return generate(base, spec, verbose=True, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +485,7 @@ def select_lanes(names, lanes) -> list:
 
 def multiseq_sequences(device, frames: int = 600, lanes=None) -> dict:
     """The lanes of the multi-sequence evaluation rendered on `device`, lane
-    by lane: name -> Sequence, each (frames, 480, 640) f32 (737 MB a lane at
+    by lane: name -> RenderedSequence, each (frames, 480, 640) f32 (737 MB a lane at
     600 frames, 4.4 GB for all six). `lanes` as `select_lanes` takes it."""
     specs = multiseq_specs(frames)
     return {name: render_sequence(specs[name], device)

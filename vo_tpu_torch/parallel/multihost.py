@@ -18,7 +18,9 @@ share a card, or the CPU); every JSON line says which, and on which device.
 
 Modes, each checked against the single-device solver in the same process:
   * the lockstep rollout (default): `--lanes-per-device` lanes a rank over
-    the synthetic city, a cross-rank sum of the lanes, finite poses;
+    the synthetic city, or over a layout on disk (`--dataset parking
+    --data-root D`, cropped by `--crop`), a cross-rank sum of the lanes,
+    finite poses;
   * `--dist-ba`: landmark rows sharded over every rank (parallel/dist_ba.py);
   * `--seqpar-ba`: keyframe blocks sharded over every rank, W_eff = 4 a rank
     (parallel/window_blocks.py).
@@ -103,6 +105,13 @@ def city_spec(scale: float = 1.0):
                                height=round(spec.height * scale), focal=spec.focal * scale)
 
 
+def frame_plan(n_imgs: int, steps: int) -> list:
+    """The rollout's frame indices over a disk sequence: forward from frame
+    3, back to frame 1, then 2 and forward again (run_multiseq's plan)."""
+    order = list(range(3, n_imgs)) + list(range(n_imgs - 2, 0, -1)) + [1, 2]
+    return (order * (steps // len(order) + 1))[:steps]
+
+
 def last_json(stdout: str) -> dict:
     return json.loads([ln for ln in stdout.splitlines() if ln.startswith("{")][-1])
 
@@ -126,7 +135,10 @@ def _parse(argv):
                    help="render the city at this fraction of 640x480 (focal "
                         "scaled alike) before the crop: a small CPU run")
     p.add_argument("--dataset", default="synthetic",
-                   help="synthetic: the default city rendered on the device")
+                   choices=["synthetic", "kitti", "malaga", "parking"],
+                   help="synthetic: the default city rendered on the device; else a "
+                        "layout under --data-root (vo_tpu_torch.data.Sequence)")
+    p.add_argument("--data-root", default="./data")
     p.add_argument("--repeats", type=int, default=2,
                    help="timed rollout repeats (the first is warm-up)")
     p.add_argument("--dist-ba", action="store_true",
@@ -248,7 +260,7 @@ def _rollout_main(args, backend: str, dev) -> int:
     index, each rank rolls its lanes with no collective in the step."""
     import torch
 
-    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.data import Sequence, synthetic
     from vo_tpu_torch.models.pipeline import bootstrap, map_state
     from vo_tpu_torch.ops import kernels
     from vo_tpu_torch.parallel.mesh import broadcast
@@ -271,14 +283,22 @@ def _rollout_main(args, backend: str, dev) -> int:
     gsum_ok = float(ones.sum()) == float(lanes_global)
 
     h, w = (int(v) for v in args.crop.split("x"))
-    seq = synthetic.render_sequence(city_spec(args.scale), dev, num_frames=args.steps + 3)
-    frames = seq.frames[:, :h, :w].contiguous()
+    if args.dataset == "synthetic":
+        seq = synthetic.render_sequence(city_spec(args.scale), dev, num_frames=args.steps + 3)
+        frames, K = seq.frames[:, :h, :w].contiguous(), seq.K
+        plan = list(range(3, args.steps + 3))
+    else:  # a layout on disk, cropped (top left, K unchanged)
+        seq = Sequence(args.dataset, path=args.data_root)
+        plan = frame_plan(len(seq), args.steps)
+        frames = torch.stack([torch.from_numpy(seq.get_frame(i)[:h, :w].copy())
+                              for i in range(max(plan) + 1)]).to(dev)
+        K = torch.as_tensor(seq.K, dtype=torch.float32, device=dev)
     cfg = VOConfig(capacity=args.capacity)
-    st, _ = bootstrap(frames[0], frames[2], seq.K, cfg,
+    st, _ = bootstrap(frames[0], frames[2], K, cfg,
                       torch.Generator(device=dev).manual_seed(2023))
     st = map_state(lambda x: broadcast(x, mesh, "data"), st, rng=st.rng)
-    images = frames[3:, None].expand(-1, lanes_local, -1, -1).contiguous()
-    Ks = seq.K.expand(lanes_local, 3, 3).contiguous()
+    images = frames[plan, None].expand(-1, lanes_local, -1, -1).contiguous()
+    Ks = K.expand(lanes_local, 3, 3).contiguous()
     rollout = make_sharded_rollout(mesh, cfg)
 
     def lanes():
@@ -335,11 +355,6 @@ def worker_main(argv=None) -> int:
     import torch
     import torch.distributed as dist
 
-    from vo_tpu_torch.data import UNPORTED_DATASET
-
-    if args.dataset != "synthetic":
-        print(UNPORTED_DATASET.format(name=args.dataset), file=sys.stderr)
-        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("multihost: no CUDA device visible (pass --device cpu)", file=sys.stderr)
         return 2

@@ -2,8 +2,8 @@
 """Smoke test of vo_tpu_torch on one CUDA GPU — the quickest proof that the
 port builds, agrees with its plain PyTorch versions, and runs its main path.
 
-    python3 chip_smoke.py            # the full runs of every phase but multiseq (150 frames)
-    python3 chip_smoke.py --multiseq-frames 600   # ... and the six lanes at full length
+    python3 chip_smoke.py            # full runs but multiseq, harris (60 frames), data (120)
+    python3 chip_smoke.py --multiseq-frames 600 --harris-frames 600 --data-frames 600
     python3 chip_smoke.py --frames 60 --multiseq-frames 40 --harris-frames 60 \
         --sift-frames 24 --loop-frames 100        # a short rehearsal
 
@@ -26,16 +26,28 @@ Phases:
   6. `k2b`: the gather kernel over 6 lanes, (6, 516, 676) and the coarsest
      level (6, 96, 116) with (6, 512, 2) corners, sizes 21/35, bit-identical;
      then the pair over 6 lanes at the four level shapes; timed;
-  7. `headline`: render the synthetic city on the device, check two frames
-     against the numpy renderer, run bootstrap + vo_step over the sequence
-     with VOConfig(capacity=1024), and gate the launch counts, finiteness,
-     pose_ok count and ATE against exact ground truth;
+  7. `headline`: bench_torch.py's headline through its own
+     `bench_synthetic_full`: the synthetic city written to disk by
+     `generate` and read back through `Sequence("synthetic")`, two frames
+     checked against the numpy renderer, bootstrap, then a warm-up and a
+     timed `vo_rollout` with VOConfig(capacity=1024); gates the launch counts
+     of both rollouts, the timed poses bit-equal to the warm-up's,
+     finiteness, the pose_ok count and the ATE against exact ground truth;
+  7b. `bench`: the measurement entry points. (a) K1 and the K2 pair at KITTI
+     05's frame size (370x1226) and its pyramid levels against their plain
+     versions, timed; (b) bench_torch's `bench_kitti_probe` over the first 6
+     frames of the city rendered at 1226x370, focal 707.0912 (capacity 512,
+     40 ping-ponged steps, warm-up and timed: launch counts, finite, 0
+     frozen); (c) tools/roofline_torch.py and tools/profile_all_torch.py over
+     the 640x480 city (host against device time, part by part); (d)
+     tools/bench_solvers_torch.py (the solver pairs agree within 1e-4) and
+     tools/bench_pg_torch.py (the error falls; one rank equals pg_optimize);
   8. `multiseq`: the lockstep multi-sequence evaluation at full width (the
      entry points of run_multiseq_torch.py --full): six distinct cities,
      640x480, capacity 512, bootstrapped alone, stacked and rolled in
      lockstep in chunks of 64, then the distorted-lens lane on its own;
      gates the batched launch counts, finiteness, per-lane pose_ok and, at
-     the full 600 frames a lane (`--multiseq-frames 600`; 150 by default),
+     the full 600 frames a lane (`--multiseq-frames 600`; 60 by default),
      the ATE;
   9. `data`: the disk data layer at full width. (a) what the machine has
      for decoding (g++, the png.h and jpeglib.h headers, PIL, cv2,
@@ -44,17 +56,19 @@ Phases:
      PIL where it cannot build). (b) `generate` writes the first 60 frames
      of the default city; `run_vo_torch.py --dataset parking` over them and
      `--dataset synthetic` give the same poses bit for bit, and K.txt gives
-     spec.K(). (c) the 600-frame city under varying lighting, written by
-     `generate` and run from disk (`--chunk 16`, the decode-ahead ring where
-     the native loader built): K1 598 and K2 2,392 launches, finite, 0
-     frozen, pose_ok >= 590 of 597, ATE below max(3 x the headline's ATE,
+     spec.K(). (c) the city under varying lighting (its first 120 frames;
+     `--data-frames 600` for all), written by `generate` and run from disk
+     (`--chunk 16`, the decode-ahead ring where the native loader built): K1
+     steps + 1 and K2 4 x that launches, finite, 0 frozen, pose_ok on all
+     but 7 frames, and at 600 frames ATE below max(3 x the headline's ATE,
      0.35 m). (d) `run_multiseq_torch.py` over (c)'s layout at capacity 512,
      40 steps: `--sweep 1,6`, then six lanes (seeds 2023 + i); K1b once and
      K2b four times a batched step (B = 1 launches K1 and K2), finite lanes,
      each lane's ATE <= 2 m;
  10. `harris`, `sift`, `loop`: the entry point `run_vo_torch.py` through its
      own `run` function, at full width (640x480, capacity 1024). `harris`:
-     `--tracker harris` over the 600-frame city (the corner kernel's
+     `--tracker harris` over the first 60 frames of the city
+     (`--harris-frames 600` for the whole; the corner kernel's
      (harris, 7, 5) instance twice at bootstrap and once a step, no gather
      launch), then its first 40 frames again, bit-equal. `sift`: `--tracker
      sift` over the first 150 frames (no kernel launch at all). `loop`:
@@ -94,8 +108,10 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -171,10 +187,12 @@ DIST_CLUSTER_TIMEOUT_S = 300
 # The JAX package's --seqpar-shards 2 (README.md, a CPU run): accuracy only.
 SEQPAR_YARDSTICK = {"ate_no_refine_m": 0.298, "ate_seqpar_m": 0.051}
 # The data phase: the default city written to disk and read back. (b) cuts
-# it to 60 frames; (c) writes all 600 under varying lighting; (d) runs the
-# dataset lanes over (c)'s layout.
+# it to 60 frames; (c) writes it under varying lighting, the first 120
+# frames by default (all 600, where its ATE gate applies, with
+# --data-frames 600); (d) runs the dataset lanes over (c)'s layout.
 DATA_EQUAL_FRAMES = 60
 DATA_FRAMES = 600
+DATA_DEFAULT_FRAMES = 120
 DATA_CHUNK = 16
 DATA_DECODE_CHECK = 8  # frames decoded by two decoders, bit for bit
 # tests/test_lighting.py's gate: varying lighting within 3x the ATE of the
@@ -182,6 +200,12 @@ DATA_DECODE_CHECK = 8  # frames decoded by two decoders, bit for bit
 LIGHTING_ATE_FACTOR, LIGHTING_ATE_FLOOR_M = 3.0, 0.35
 DATA_LANES, DATA_LANE_CAPACITY, DATA_LANE_STEPS = 6, 512, 40
 DATA_LANE_ATE_M = 2.0  # the multiseq floor
+# The bench phase: KITTI 05's frame size and focal length (the JAX harness's
+# flagship step, __graft_entry__.py) and the probe's 6 frames; the
+# solver pairs' agreement (tests/test_torch_tools.py's tolerance).
+KITTI_H, KITTI_W, KITTI_FOCAL = 370, 1226, 707.0912
+BENCH_PROBE_FRAMES = 6
+SOLVER_REL_TOL = 1e-4
 # Inputs one phase leaves for a later one (the headline's BA window and ATE,
 # the loop's pose graph).
 HANDOFF: dict = {}
@@ -529,80 +553,77 @@ def phase_k2b(dev, record: dict) -> None:
     _pair_record(record, timed[0], (b,) + LK_LEVEL_SHAPES[0], k)
 
 
-def phase_headline(dev, n_frames: int, records: dict) -> None:
+def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
+    """bench_torch.py's headline (bench.py's synthetic half) through its own
+    `bench_synthetic_full`: the city written under `city_root` and read back
+    through the loader, a warm-up and a timed rollout from one bootstrap."""
     import torch
+
+    import bench_torch
     from vo_tpu_torch.data import synthetic
-    from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
-    from vo_tpu_torch.models.pipeline import bootstrap, vo_step
     from vo_tpu_torch.ops import kernels
     from vo_tpu_torch.utils.config import VOConfig
 
-    cfg = VOConfig(capacity=1024)
+    levels = VOConfig().klt.pyramid_levels
+    spec = dataclasses.replace(synthetic.DEFAULT_SPEC, num_frames=n_frames)
+    t0 = time.perf_counter()
+    synthetic.generate(str(Path(city_root) / "synthetic"), spec, verbose=False, device=dev)
+    print(f"[headline] wrote {n_frames} frames of the city in {time.perf_counter() - t0:.1f} s")
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    seq = synthetic.headline_sequence(dev, n_frames)
-    spec = seq.spec
-    torch.cuda.synchronize()
-    print(f"[headline] rendered {tuple(seq.frames.shape)} on the device in "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    gen = torch.Generator(device=dev).manual_seed(2023)
-    t0 = time.perf_counter()
-    state, out0 = bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg, gen)
-    torch.cuda.synchronize()
-    t_boot = time.perf_counter() - t0
-    outs = []
-    t0 = time.perf_counter()
-    for i in range(3, n_frames):
-        state, out = vo_step(state, seq.frames[i], seq.K, cfg)
-        outs.append(out)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    run = bench_torch.bench_synthetic_full(dev, city_root)
+    t_all = time.perf_counter() - t0
     counts = dict(kernels.launch_counts)
-    steps = len(outs)
+    warm, outs = run.rollouts.warm, run.rollouts.timed
+    steps = outs.pose.shape[0]
 
-    poses = np.concatenate([
-        np.stack([np.eye(4, dtype=np.float32), out0.pose.cpu().numpy()]),
-        torch.stack([o.pose for o in outs]).cpu().numpy(),
-    ])
-    pose_ok = int(torch.stack([o.pose_ok for o in outs]).sum())
-    frozen = int(torch.stack([o.frozen for o in outs]).sum())
+    poses = bench_torch.step_poses(run.boot_pose, outs)
+    pose_ok = int(outs.pose_ok.sum())
+    frozen = int(outs.frozen.sum())
     finite = int(np.isfinite(poses[2:]).all(axis=(1, 2)).sum())
-    gt = seq.gt_poses[[0, 2] + list(range(3, n_frames))]
-    ate = ate_rmse(positions_from_poses(poses), positions_from_poses(gt))
-    t_rpe, r_rpe = rpe(poses, gt)
-    fps = steps / dt
-    print(f"[headline] bootstrap {t_boot:.2f} s (pose_ok={bool(out0.pose_ok)}, "
-          f"{int(out0.num_triangulated)} landmarks)")
-    print(f"[headline] {steps} vo_steps in {dt:.2f} s = {fps:.2f} frames/s")
+    same = bool(torch.equal(warm.pose, outs.pose))
+    res = run.result
+    ate = res["ate_rmse_m"]
+    print(f"[headline] bench_synthetic_full: {t_all:.1f} s (decode, bootstrap, warm-up and "
+          f"timed rollouts); the timed {steps} steps in {run.rollouts.seconds:.2f} s = "
+          f"{res['value']:.2f} frames/s")
     print(f"[headline] ATE {ate:.4f} m (reference {REFERENCE_ATE_M} m, drift "
           f"{100.0 * (ate - REFERENCE_ATE_M) / REFERENCE_ATE_M:+.1f}%), "
-          f"RPE {t_rpe:.5f} m / {np.degrees(r_rpe):.5f} deg")
-    print(f"[headline] pose_ok {pose_ok}/{steps}, finite {finite}/{steps}, frozen {frozen}")
-    print(f"[headline] launches: {json.dumps(counts)}")
+          f"RPE {res['rpe_trans_m']:.5f} m / {res['rpe_rot_deg']:.5f} deg")
+    print(f"[headline] pose_ok {pose_ok}/{steps}, finite {finite}/{steps}, frozen {frozen}; "
+          f"timed poses bit-equal to the warm-up's: {same}")
+    print(f"[headline] launches (bootstrap + both rollouts): {json.dumps(counts)}")
+    print(json.dumps(dict(phase="headline", **res, seconds=run.rollouts.seconds,
+                          warm_equals_timed=same, launches=counts)))
     records["corner_response_nms"]["launches"] = counts["corner_response_nms"]
     records["extract_patches"]["launches"] = counts["extract_patches"]
-    HANDOFF["ba_window"] = (state.window, seq.K)
+    HANDOFF["ba_window"] = (run.rollouts.state.window, torch.as_tensor(run.seq.K, device=dev))
     HANDOFF["headline_ate"] = ate
 
-    # The renderer against the reference numpy renderer on two frames.
+    # The frames as the loader read them against the reference numpy renderer.
     rects, tex = synthetic.scene(spec)
+    gt = synthetic.make_path(spec.path, n_frames)
     for i in (0, n_frames // 2):
-        ref = synthetic.render_frame(rects, tex, seq.gt_poses[i], spec.K(),
-                                     spec.width, spec.height, dist=spec.dist)
-        d = np.abs(seq.frames[i].cpu().numpy() - ref.astype(np.float32)).max()
-        print(f"[headline] frame {i}: device render vs numpy max diff {d:.0f} grey levels")
+        ref = synthetic.render_frame(rects, tex, gt[i], spec.K(), spec.width, spec.height,
+                                     dist=spec.dist)
+        d = np.abs(run.seq.get_frame(i) - ref.astype(np.float32)).max()
+        print(f"[headline] frame {i}: device render from disk vs numpy max diff {d:.0f} "
+              "grey levels")
         if d > 2:
             raise AssertionError(f"renderer disagrees with the reference at frame {i}: {d}")
 
     fails = []
-    if counts["corner_response_nms"] != steps + 1:
-        fails.append(f"K1 launched {counts['corner_response_nms']} times, want {steps + 1}")
-    # One launch per pyramid level does both gathers of the level.
-    want_k2 = cfg.klt.pyramid_levels * (steps + 1)
-    if counts["extract_patches"] != want_k2:
-        fails.append(f"K2 launched {counts['extract_patches']} times, want {want_k2}")
+    # Both rollouts launch: 1 corner kernel at bootstrap and one a step, one
+    # gather pair a pyramid level at bootstrap and a step.
+    want_k1 = 1 + 2 * steps
+    if counts["corner_response_nms"] != want_k1:
+        fails.append(f"K1 launched {counts['corner_response_nms']} times, want {want_k1}")
+    if counts["extract_patches"] != levels * want_k1:
+        fails.append(f"K2 launched {counts['extract_patches']} times, want {levels * want_k1}")
+    if not same:
+        d = float((warm.pose - outs.pose).abs().max())
+        fails.append(f"the timed rollout's poses differ from the warm-up's (max {d:.3g})")
     if finite != steps or frozen:
         fails.append(f"{steps - finite} non-finite poses, {frozen} frozen frames")
     if pose_ok < steps - POSE_OK_SLACK:
@@ -709,6 +730,124 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
         counts["corner_response_nms"] + dcounts["corner_response_nms"])
     records["extract_patches"]["launches_multiseq"] = (
         counts["extract_patches"] + dcounts["extract_patches"])
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def _kitti_sized_kernels(dev, records: dict) -> None:
+    """(a) K1 and the K2 pair at KITTI 05's frame size, 370x1226, and at its
+    pyramid levels (all but the first odd-sided), against their plain
+    versions as `_k1_parity` and `_pair_case` hold them; timed."""
+    import torch
+
+    import bench_torch
+    from vo_tpu_torch.ops.image import build_pyramid
+    from vo_tpu_torch.utils.config import VOConfig
+
+    cfg = VOConfig(capacity=bench_torch.KITTI_CAPACITY)
+    shape = (KITTI_H, KITTI_W)
+    k1 = {}
+    _k1_parity(dev, k1, "bench", [(shape, m) for m in K1_MODES], shape)
+    levels = [tuple(x.shape) for x in build_pyramid(torch.zeros(shape), cfg.klt.pyramid_levels)]
+    rng = np.random.default_rng(13)
+    timed = [_pair_case(dev, rng, "bench", lvl, cfg.capacity, lvl == shape) for lvl in levels]
+    pair = {}
+    _pair_record(pair, timed[0], shape, cfg.capacity)
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    records["corner_response_nms"]["at_370x1226"] = {k: k1[k] for k in keys}
+    records["extract_patches"]["at_370x1226"] = dict(
+        {k: pair[k] for k in keys}, levels=[list(x) for x in levels], k=cfg.capacity)
+    print(json.dumps(dict(phase="bench", part="kernels_370x1226", levels=levels,
+                          k1={k: k1[k] for k in keys}, pair={k: pair[k] for k in keys})))
+
+
+def _kitti_sized_probe(dev, records: dict, fails: list) -> None:
+    """(b) bench_torch.bench_kitti_probe over the first frames of the city
+    rendered at KITTI's size and focal length (no KITTI images are in the
+    repository): 40 ping-ponged steps, warm-up and timed."""
+    import torch
+
+    import bench_torch
+    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.ops import kernels
+    from vo_tpu_torch.utils.config import VOConfig
+
+    spec = dataclasses.replace(synthetic.DEFAULT_SPEC, width=KITTI_W, height=KITTI_H,
+                               focal=KITTI_FOCAL)
+    seq = synthetic.render_sequence(spec, dev, BENCH_PROBE_FRAMES)
+    kernels.reset_launch_counts()
+    fps, runs = bench_torch.bench_kitti_probe(list(seq.frames), seq.K, dev,
+                                              bench_torch.KITTI_STEPS)
+    counts = dict(kernels.launch_counts)
+    steps = runs.timed.pose.shape[0]
+    finite = int(torch.isfinite(runs.timed.pose).all(dim=(1, 2)).sum())
+    frozen = int(runs.timed.frozen.sum()) + int(runs.warm.frozen.sum())
+    same = bool(torch.equal(runs.warm.pose, runs.timed.pose))
+    line = dict(phase="bench", part="kitti_sized_probe", frame=[KITTI_H, KITTI_W],
+                focal=KITTI_FOCAL, frames=BENCH_PROBE_FRAMES, steps=steps,
+                capacity=bench_torch.KITTI_CAPACITY, kitti05_sized_fps=fps,
+                seconds=runs.seconds, pose_ok=int(runs.timed.pose_ok.sum()), finite=finite,
+                frozen=frozen, warm_equals_timed=same, launches=counts)
+    print(json.dumps(line))
+    levels = VOConfig().klt.pyramid_levels
+    want = {"corner_response_nms": 1 + 2 * steps, "extract_patches": levels * (1 + 2 * steps),
+            "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+    if counts != want:
+        fails.append(f"(b) launches {counts}, want {want}")
+    if finite != steps or frozen or not bool(torch.isfinite(runs.warm.pose).all()):
+        fails.append(f"(b) {steps - finite} non-finite timed poses, {frozen} frozen frames")
+    if not same:
+        fails.append("(b) the timed rollout's poses differ from the warm-up's")
+    records["corner_response_nms"]["launches_bench"] = counts["corner_response_nms"]
+    records["extract_patches"]["launches_bench"] = counts["extract_patches"]
+
+
+def phase_bench(dev, records: dict, city_root: str) -> None:
+    """The measurement entry points on the card: (a) the kernels at KITTI's
+    frame size, (b) bench_torch's KITTI-sized probe, (c) tools/roofline_torch.py
+    and tools/profile_all_torch.py over the 640x480 city the headline wrote,
+    (d) tools/bench_solvers_torch.py and tools/bench_pg_torch.py."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import bench_pg_torch
+    import bench_solvers_torch
+    import profile_all_torch
+    import roofline_torch
+
+    fails = []
+    card = _card_line()
+    _kitti_sized_kernels(dev, records)
+    _kitti_sized_probe(dev, records, fails)
+    _free()
+
+    # (c) The roofline, then the profile part by part, host against device.
+    rows = roofline_torch.roofline(dev)
+    roofline_torch.print_table(rows, card)
+    print(json.dumps(dict(phase="bench", part="roofline", device=card, rows=rows)))
+    if not all(r["ms"] is not None and np.isfinite(r["ms"]) for r in rows):
+        fails.append("(c) a roofline row without a finite time")
+    frames, K = profile_all_torch.read_frames("synthetic", city_root, dev)
+    rows = profile_all_torch.profile(frames, K, dev)
+    print(f"[bench] profile on {card}")
+    profile_all_torch.print_table(rows)
+    print(json.dumps(dict(phase="bench", part="profile", device=card,
+                          frame=list(frames.shape[-2:]), rows=rows)))
+    if not all(r["device_ms"] is not None and np.isfinite([r["host_ms"], r["device_ms"]]).all()
+               for r in rows):
+        fails.append("(c) a profile row without finite host and device times")
+    del frames
+    _free()
+
+    # (d) The solver pairs and the pose graph.
+    solvers = bench_solvers_torch.bench(dev)
+    print(json.dumps(dict(phase="bench", part="solvers", device=card, **solvers)))
+    for key in ("ba_pose_rel_diff", "ba_landmark_rel_diff", "pnp_solve_rel_diff"):
+        if not solvers[key] < SOLVER_REL_TOL:
+            fails.append(f"(d) {key} {solvers[key]:.3g}, want < {SOLVER_REL_TOL}")
+    pg = bench_pg_torch.bench(dev)
+    print(json.dumps(dict(phase="bench", part="pose_graph", device=card, **pg)))
+    if not (np.isfinite(pg["err_last"]) and pg["err_last"] < pg["err0"] and pg["dist_equal"]):
+        fails.append(f"(d) pose graph: err {pg['err0']} -> {pg['err_last']}, one rank "
+                     f"equal {pg['dist_equal']}")
     if fails:
         raise AssertionError("; ".join(fails))
 
@@ -1330,20 +1469,23 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--frames", type=int, default=600,
                         help="length of the headline sequence (default 600)")
-    parser.add_argument("--multiseq-frames", type=int, default=150,
+    parser.add_argument("--multiseq-frames", type=int, default=60,
                         help="frames per lane of the multi-sequence phase (default "
-                             "150, to keep the script inside its time; the ATE gates "
-                             "apply only at the full length of 600)")
-    parser.add_argument("--harris-frames", type=int, default=600,
-                        help="frames of the harris-tracker run (default 600; the ATE "
-                             "gate applies only at full length)")
+                             "60, to keep the script inside its time on a slow host; "
+                             "the ATE gates apply only at the full length of 600)")
+    parser.add_argument("--harris-frames", type=int, default=60,
+                        help="frames of the harris-tracker run (default 60, to keep the "
+                             "script inside its time with the headline's second rollout "
+                             "and the bench phase; the ATE gate applies only at the full "
+                             "length of 600)")
     parser.add_argument("--sift-frames", type=int, default=150,
                         help="frames of the sift-tracker run (default 150; the ATE "
                              "gate applies at 150 and at 600)")
-    parser.add_argument("--data-frames", type=int, default=DATA_FRAMES,
+    parser.add_argument("--data-frames", type=int, default=DATA_DEFAULT_FRAMES,
                         help=f"frames of the varying-lighting city the data phase writes "
-                             f"and reads (default {DATA_FRAMES}; the ATE gate applies only "
-                             "at full length)")
+                             f"and reads (default {DATA_DEFAULT_FRAMES}, to keep the script "
+                             f"inside its time; the ATE gate applies only at the full "
+                             f"length of {DATA_FRAMES})")
     parser.add_argument("--loop-frames", type=int, default=LOOP_FRAMES,
                         help=f"frames of the loop-closure run (default {LOOP_FRAMES}; the "
                              "graph and ATE gates apply only at full length)")
@@ -1438,7 +1580,12 @@ def main(argv=None) -> int:
         run("k2", phase_k2, dev, records["extract_patches"])
         run("k1b", phase_k1b, dev, records["corner_response_nms_batched"])
         run("k2b", phase_k2b, dev, records["extract_patches_batched"])
-    run("headline", phase_headline, dev, args.frames, records)
+    city = tempfile.mkdtemp(prefix="vo_city_")  # the headline's city, on disk
+    try:
+        run("headline", phase_headline, dev, args.frames, records, city)
+        run("bench", phase_bench, dev, records, city)
+    finally:
+        shutil.rmtree(city, ignore_errors=True)
     run("multiseq", phase_multiseq, dev, args.multiseq_frames, records)
     run("data", phase_data, dev, args.data_frames, records)
     run("harris", phase_harris, dev, args.harris_frames, records)

@@ -60,13 +60,15 @@ SLICE_MODULES = [
     "vo_tpu_torch.parallel.dist_pg",
     "vo_tpu_torch.parallel.window_blocks",
     "vo_tpu_torch.parallel.multihost",
+    "bench_torch",
     "chip_smoke",
     "run_multiseq_torch",
     "run_vo_torch",
 ]
 
 PORT_FILES = sorted((ROOT / "vo_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "run_multiseq_torch.py", ROOT / "run_vo_torch.py",
+    ROOT / "bench_torch.py", ROOT / "chip_smoke.py", ROOT / "run_multiseq_torch.py",
+    ROOT / "run_vo_torch.py",
 ] + sorted((ROOT / "tools").glob("*_torch.py")) + [
     # The rank bodies of the distributed tests: the spawned ranks import it.
     ROOT / "tests" / "torch_dist_ranks.py",

@@ -1,0 +1,126 @@
+"""The port's measurement tools on the CPU at tiny repeats: the roofline
+(tools/roofline_torch.py), the part-by-part profile (profile_all_torch.py),
+the solver bench (bench_solvers_torch.py) and the pose-graph bench
+(bench_pg_torch.py). Each runs once, gives its rows by name with finite
+values, leaves every device column empty (a CPU run measures no card), and
+refuses to run without a GPU unless asked for the CPU; the solver pairs
+agree."""
+
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+import bench_pg_torch  # noqa: E402
+import bench_solvers_torch  # noqa: E402
+import profile_all_torch  # noqa: E402
+import roofline_torch  # noqa: E402
+from vo_tpu_torch.data import synthetic as tsyn  # noqa: E402
+from vo_tpu_torch.utils.config import VOConfig  # noqa: E402
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+TOOLS = [roofline_torch, profile_all_torch, bench_solvers_torch, bench_pg_torch]
+
+
+def _last_json(out: str) -> dict:
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+
+@pytest.mark.parametrize("tool", TOOLS, ids=lambda m: m.__name__)
+def test_tool_refuses_to_run_without_a_gpu(tool, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    assert tool.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_roofline_rows(capsys):
+    """roofline.py's five parts plus the two kernels, with the shapes of
+    VOConfig() (4 LK levels where roofline.py has 3); the byte/operation
+    models and bounds are finite and positive, the times null on the CPU."""
+    assert roofline_torch.main(["--device", "cpu", "--reps", "1"]) == 0
+    line = _last_json(capsys.readouterr().out)
+    cfg = VOConfig()
+    assert line["device"] == "cpu"
+    assert [r["kernel"] for r in line["rows"]] == [
+        "detect(shi_tomasi+nms+top1024)", "K1 corner_response_nms (kernel)",
+        f"pyramidal_lk(1024pts,{cfg.klt.pyramid_levels}lvl,{cfg.klt.max_iters}it)",
+        "K2 extract_patch_pairs level 0 (kernel)", "match_descriptors(1024x361)",
+        "pnp_ransac(256hyp+10gn)", "ba_gn_iter(W=6,L=1024)"]
+    for r in line["rows"]:
+        assert r["ms"] is None and r["sol_pct"] is None and r["timed_by"] == "cpu"
+        assert np.isfinite([r["mbytes"], r["mflops"], r["bound_ms"]]).all()
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+    # The kernel rows carry chip_smoke.py's models: K1 reads and writes one
+    # 640x480 f32 map, the pair writes 1024 patches of 21 and of 35.
+    k1, k2 = line["rows"][1], line["rows"][3]
+    assert k1["mbytes"] == pytest.approx(2 * 480 * 640 * 4 / 1e6)
+    assert k2["mflops"] == 0 and k2["bound_by"] == "bytes"
+
+
+def test_profile_rows(tmp_path, capsys, monkeypatch):
+    """Every part by name on a 6-frame 160x120 city (capacity 256 and
+    4-frame rollouts here), host times finite, device columns null; the
+    KITTI layout reads through the same frame reader."""
+    monkeypatch.setattr(profile_all_torch, "CAPACITY", 256)
+    monkeypatch.setattr(profile_all_torch, "ROLLOUT_STEPS", 4)
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, num_frames=6, width=160, height=120,
+                               focal=104.0)
+    tsyn.generate(str(tmp_path / "synthetic"), spec, verbose=False, device="cpu")
+    assert profile_all_torch.main(["--device", "cpu", "--data-root", str(tmp_path),
+                                   "--reps", "1"]) == 0
+    line = _last_json(capsys.readouterr().out)
+    assert line["device"] == "cpu" and line["frame"] == [120, 160]
+    assert [r["name"] for r in line["rows"]] == [
+        "noop x + 1.0", "vo_step (ba on)", "vo_step (ba off)", "build_pyramid",
+        "pyramidal_lk 256pts", "corner_response_nms (K1)", "select_from_masked top256",
+        "detect (K1 + top256)", "pnp_ransac 256hyp", "triangulate_dlt 256",
+        "ba_refine 5 iters", "match_descriptors 256x361", "rollout 4f (ba off)",
+        "rollout 4f (ba on)"]
+    for r in line["rows"]:
+        assert np.isfinite(r["host_ms"]) and r["host_ms"] > 0, r
+        assert r["device_ms"] is None and r["device_idle_share"] is None, r
+    assert all(np.isfinite(r["fps"]) for r in line["rows"][-2:])
+
+    kitti = tmp_path / "kitti" / "05"
+    (kitti / "image_0").mkdir(parents=True)
+    for i, src in enumerate(sorted((tmp_path / "synthetic" / "images").iterdir())):
+        (kitti / "image_0" / f"{i:06d}.png").write_bytes(src.read_bytes())
+    P = np.hstack([spec.K().astype(np.float64), np.zeros((3, 1))])
+    (kitti / "calib.txt").write_text("P0: " + " ".join(f"{v:.9e}" for v in P.ravel()) + "\n")
+    frames, K = profile_all_torch.read_frames("kitti", str(tmp_path), CPU)
+    want, _ = profile_all_torch.read_frames("synthetic", str(tmp_path), CPU)
+    assert torch.equal(frames, want) and np.array_equal(K, spec.K())
+
+
+def test_solver_pairs_agree():
+    """The blocked Cholesky against torch.linalg.solve on the demo window
+    (W = 6, L = 1024): the GN step's poses and landmarks within 1e-4 of each
+    other (relative, max norm), the ten PnP solves likewise."""
+    out = bench_solvers_torch.bench(CPU, reps=1)
+    assert out["ba_pose_rel_diff"] < 1e-4 and out["ba_landmark_rel_diff"] < 1e-4
+    assert out["pnp_solve_rel_diff"] < 1e-4
+    # The camera system itself carries the 1e8 gauge pivot: f32's condition.
+    assert out["ba_solve_rel_diff"] < 1e-3
+    times = [v for k, v in out.items() if k.endswith("_ms")]
+    assert len(times) == 4 and np.isfinite(times).all() and min(times) > 0
+
+
+def test_pose_graph_bench():
+    """A 32-node circuit with its loop edges: the error falls, and the
+    edge-sharded optimizer at one rank (Gloo) equals pg_optimize bit for bit."""
+    out = bench_pg_torch.bench(CPU, nodes=32, iters=4)
+    assert out["nodes"] == 32 and out["loop_edges"] == bench_pg_torch.LOOP_EDGES
+    assert np.isfinite([out["err0"], out["err_last"], out["first_s"], out["second_s"]]).all()
+    assert out["err_last"] < out["err0"]
+    assert out["dist_ranks"] == 1 and out["dist_backend"] == "gloo" and out["dist_equal"]
+    assert not torch.distributed.is_initialized()

@@ -169,9 +169,13 @@ def _same(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float,
-             reduce_fn=_same):
+             reduce_fn=_same, solve=spd_solve_blocked):
     """One damped Schur-complement GN step. Returns (new kf_pose, new
     landmark, mean masked reprojection error before the step).
+
+    `solve(S, b)` solves the (..., W, W, 6, 6) camera system; the blocked
+    Cholesky is the step's, tools/bench_solvers_torch.py times a dense LU
+    against it.
 
     `reduce_fn` sums landmark-partitioned terms over the ranks that hold the
     other landmark rows (parallel/dist_ba.py): the camera-side normal
@@ -221,7 +225,7 @@ def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float,
     dead = ~window.kf_valid
     S[..., diag, diag, :, :] += dead[..., None, None] * _GAUGE * eye6
 
-    delta_c = spd_solve_blocked(S, -b_red)
+    delta_c = solve(S, -b_red)
     # A degenerate window (floored Cholesky pivot) yields a no-op step.
     solve_ok = torch.isfinite(delta_c).flatten(-2).all(dim=-1)[..., None, None]
     delta_c = torch.where(solve_ok, delta_c, 0.0)

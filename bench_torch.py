@@ -74,20 +74,24 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def warm_and_timed(state, stack, K, cfg) -> Rollouts:
-    """`vo_rollout` over `stack` twice from `state`: a warm-up, then a timed
-    run with the same draws (the sampler rewound to where it stood)."""
+def warm_and_timed(state, stack, K, cfg, repeats: int = 1) -> Rollouts:
+    """`vo_rollout` over `stack` from `state`: a warm-up, then `repeats`
+    timed runs with the same draws (the sampler rewound to where it stood
+    before each); `seconds` is the best of them."""
     from vo_tpu_torch.models.pipeline import vo_rollout
 
     dev = stack.device
     saved = state.rng.get_state()
     _, warm = vo_rollout(state, stack, K, cfg)
-    state.rng.set_state(saved)
-    sync(dev)
-    t0 = time.perf_counter()
-    final, timed = vo_rollout(state, stack, K, cfg)
-    sync(dev)
-    return Rollouts(warm, timed, final, time.perf_counter() - t0)
+    best = float("inf")
+    for _ in range(repeats):
+        state.rng.set_state(saved)
+        sync(dev)
+        t0 = time.perf_counter()
+        final, timed = vo_rollout(state, stack, K, cfg)
+        sync(dev)
+        best = min(best, time.perf_counter() - t0)
+    return Rollouts(warm, timed, final, best)
 
 
 def step_poses(boot_pose, outs) -> np.ndarray:
@@ -98,49 +102,69 @@ def step_poses(boot_pose, outs) -> np.ndarray:
     ])
 
 
+def trajectory_errors(boot_pose, outs, gt_poses) -> tuple[float, float, float]:
+    """(ATE in m, RPE translation in m, RPE rotation in radians) of
+    `step_poses` against the ground truth of frames 0, 2, 3, 4, ..."""
+    from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
+
+    est = step_poses(boot_pose, outs)
+    gt = gt_poses[[0, 2] + list(range(3, 3 + outs.pose.shape[0]))]
+    t_rpe, r_rpe = rpe(est, gt)
+    return (float(ate_rmse(positions_from_poses(est), positions_from_poses(gt))),
+            float(t_rpe), float(r_rpe))
+
+
+def read_city(data_root: str, dev, frames: int | None = None):
+    """The synthetic city under <data_root>/synthetic (rendered there on
+    `dev` the first time): (its first `frames` frames, all by default,
+    stacked on the device in one transfer, K on the device, the Sequence)."""
+    import torch
+
+    from vo_tpu_torch.data import Sequence
+
+    seq = Sequence("synthetic", path=data_root, render_device=str(dev))
+    n = len(seq) if frames is None else min(frames, len(seq))
+    imgs = torch.from_numpy(np.stack([seq.get_frame(i) for i in range(n)])).to(dev)
+    return imgs, torch.as_tensor(seq.K, device=dev), seq
+
+
 def bench_synthetic_full(device, data_root: str = "./data",
                          capacity: int = SYNTHETIC_CAPACITY) -> SyntheticRun:
     """The whole synthetic sequence under <data_root>/synthetic: frames/s of
     the timed rollout and ATE/RPE against the exact GT."""
     import torch
 
-    from vo_tpu_torch.data import Sequence
-    from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
     from vo_tpu_torch.models.pipeline import bootstrap
     from vo_tpu_torch.utils.config import VOConfig
 
     dev = torch.device(device)
-    seq = Sequence("synthetic", path=data_root, render_device=str(dev))
+    imgs, K, seq = read_city(data_root, dev)
     cfg = VOConfig(capacity=capacity)
-    K = torch.as_tensor(seq.K, device=dev)
-    imgs = torch.from_numpy(np.stack([seq.get_frame(i) for i in range(len(seq))])).to(dev)
-    state, out = bootstrap(imgs[0], imgs[2], K, cfg,
-                           torch.Generator(device=dev).manual_seed(SEED))
+    state, out = bootstrap(imgs[0], imgs[2], K, cfg, seeded(dev))
     stack = imgs[3:]  # one transfer; the rollouts read it on the device
     runs = warm_and_timed(state, stack, K, cfg)
     steps = stack.shape[0]
 
     boot_pose = out.pose.cpu().numpy()
-    est = step_poses(boot_pose, runs.timed)
-    gt = seq.gt_poses[[0, 2] + list(range(3, 3 + steps))]
-    ate = float(ate_rmse(positions_from_poses(est), positions_from_poses(gt)))
-    t_rpe, r_rpe = rpe(est, gt)
+    ate, t_rpe, r_rpe = trajectory_errors(boot_pose, runs.timed, seq.gt_poses)
     result = {
         "value": round(steps / runs.seconds, 3),
         "frames": int(steps),
         "ate_rmse_m": round(ate, 4),
-        "rpe_trans_m": round(float(t_rpe), 5),
-        "rpe_rot_deg": round(float(r_rpe) * 57.29578, 5),
+        "rpe_trans_m": round(t_rpe, 5),
+        "rpe_rot_deg": round(r_rpe * 57.29578, 5),
     }
     return SyntheticRun(result, boot_pose, runs, seq)
 
 
-def bench_kitti_probe(frames, K, device, steps: int) -> tuple[float, Rollouts]:
+def bench_kitti_probe(frames, K, device, steps: int, cfg=None,
+                      repeats: int = 1) -> tuple[float, Rollouts]:
     """bench.py's reference-sized probe over `frames` (a list of (H, W) grey
-    frames, numpy or tensors) with intrinsics K: capacity 512, bootstrap on frames 0 and 2,
-    `steps` frames ping-ponged through the list (forward from frame 3, back
-    to frame 1, then 2 and on), a warm-up and a timed rollout. Returns
-    (frames/s of the timed rollout, the rollouts)."""
+    frames, numpy or tensors) with intrinsics K: `cfg` (default
+    VOConfig(capacity=512)), bootstrap on frames 0 and 2, `steps` frames
+    ping-ponged through the list (forward from frame 3, back to frame 1,
+    then 2 and on), a warm-up and `repeats` timed rollouts. Returns
+    (frames/s of the best timed rollout, the rollouts)."""
     import torch
 
     from vo_tpu_torch.models.pipeline import bootstrap
@@ -148,14 +172,20 @@ def bench_kitti_probe(frames, K, device, steps: int) -> tuple[float, Rollouts]:
     from vo_tpu_torch.utils.config import VOConfig
 
     dev = torch.device(device)
-    cfg = VOConfig(capacity=KITTI_CAPACITY)
+    cfg = VOConfig(capacity=KITTI_CAPACITY) if cfg is None else cfg
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
     imgs = [torch.as_tensor(f, dtype=torch.float32, device=dev) for f in frames]
-    state, _ = bootstrap(imgs[0], imgs[2], K, cfg,
-                         torch.Generator(device=dev).manual_seed(SEED))
+    state, _ = bootstrap(imgs[0], imgs[2], K, cfg, seeded(dev))
     stack = torch.stack([imgs[i] for i in frame_plan(len(imgs), steps)])
-    runs = warm_and_timed(state, stack, K, cfg)
+    runs = warm_and_timed(state, stack, K, cfg, repeats)
     return steps / runs.seconds, runs
+
+
+def seeded(dev):
+    """The RANSAC sampler every entry point bootstraps with."""
+    import torch
+
+    return torch.Generator(device=dev).manual_seed(SEED)
 
 
 def card_name(dev) -> str:

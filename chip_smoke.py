@@ -42,6 +42,22 @@ Phases:
      the 640x480 city (host against device time, part by part); (d)
      tools/bench_solvers_torch.py (the solver pairs agree within 1e-4) and
      tools/bench_pg_torch.py (the error falls; one rank equals pg_optimize);
+  7c. `tools`: the remaining tool twins over the headline's city. (a)
+     tools/check_headline_torch.py's drift gate applied to the headline
+     phase's own result (ATE within 5% of tools/headline_expected_torch.json;
+     a rehearsal with fewer frames reports and does not gate); (b)
+     repro_headline_torch over the first 24 frames (`--repro-frames`) with
+     the kernels on, K2 off, K1 off and both off: each toggle's launch
+     counts, and K2 off bit-equal to the default; (c) probe_ablate_torch's six
+     variants at 1226x370, 4 steps (`--tools-steps`): finite, 0 frozen, bench
+     (b)'s launches for the depth; (d) ablate_step_cost_torch's nine variants,
+     4 steps: finite; (e) ablate_keyframes_torch on the stop-and-go city,
+     24 frames from frame 64 (`--keyframes-frames`), into its first stop
+     (frame 70): three policies with a finite ATE, no-ba with no keyframe
+     push, adaptive with at most one push while the camera stands and
+     every3 with more; (f) the three debug steppers over frames 3-9 (sift
+     and harris for the non-finite stepper): every report present, no
+     non-finite pose;
   8. `multiseq`: the lockstep multi-sequence evaluation at full width (the
      entry points of run_multiseq_torch.py --full): six distinct cities,
      640x480, capacity 512, bootstrapped alone, stacked and rolled in
@@ -62,9 +78,10 @@ Phases:
      steps + 1 and K2 4 x that launches, finite, 0 frozen, pose_ok on all
      but 7 frames, and at 600 frames ATE below max(3 x the headline's ATE,
      0.35 m). (d) `run_multiseq_torch.py` over (c)'s layout at capacity 512,
-     40 steps: `--sweep 1,6`, then six lanes (seeds 2023 + i); K1b once and
-     K2b four times a batched step (B = 1 launches K1 and K2), finite lanes,
-     each lane's ATE <= 2 m;
+     40 steps: `--sweep 1`, then six dataset lanes (`--sequences a,...,f`,
+     seeds 2023 + i; the sweep's B = 6 would run them again on the one
+     clip); K1b once and K2b four times a batched step (B = 1 launches K1
+     and K2), finite lanes, each lane's ATE <= 2 m;
  10. `harris`, `sift`, `loop`: the entry point `run_vo_torch.py` through its
      own `run` function, at full width (640x480, capacity 1024). `harris`:
      `--tracker harris` over the first 60 frames of the city
@@ -206,6 +223,15 @@ DATA_LANE_ATE_M = 2.0  # the multiseq floor
 KITTI_H, KITTI_W, KITTI_FOCAL = 370, 1226, 707.0912
 BENCH_PROBE_FRAMES = 6
 SOLVER_REL_TOL = 1e-4
+# The tools phase: the remaining tool twins at cut depths over the
+# headline's city (--repro-frames, --tools-steps, --keyframes-frames run
+# them deeper); the debug steppers step frames 3-9 and report from frame 6.
+TOOLS_REPRO_FRAMES = 24
+TOOLS_STEPS = 4  # probe_ablate and ablate_step_cost, a warm-up and one timed rollout
+# The keyframe ablation rolls the stop-and-go city from frame 64 into its
+# first stop (frames 70-115), where the adaptive policy stops pushing.
+TOOLS_KEYFRAMES_FIRST, TOOLS_KEYFRAMES_FRAMES = 64, 24
+TOOLS_DEBUG_FIRST, TOOLS_DEBUG_LAST = 6, 10
 # Inputs one phase leaves for a later one (the headline's BA window and ATE,
 # the loop's pose graph).
 HANDOFF: dict = {}
@@ -600,6 +626,7 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     records["extract_patches"]["launches"] = counts["extract_patches"]
     HANDOFF["ba_window"] = (run.rollouts.state.window, torch.as_tensor(run.seq.K, device=dev))
     HANDOFF["headline_ate"] = ate
+    HANDOFF["headline_result"] = res
 
     # The frames as the loader read them against the reference numpy renderer.
     rects, tex = synthetic.scene(spec)
@@ -852,6 +879,160 @@ def phase_bench(dev, records: dict, city_root: str) -> None:
         raise AssertionError("; ".join(fails))
 
 
+def _tools_rows(tag: str, rows: list, fails: list, steps: int) -> dict:
+    """Rows by variant; a failed variant, a non-finite pose or a frozen
+    frame fails the phase."""
+    for r in rows:
+        if "error" in r:
+            fails.append(f"{tag} {r['variant']}: {r['error']}")
+        elif r["finite"] != steps or r.get("frozen", 0):
+            fails.append(f"{tag} {r['variant']}: {steps - r['finite']} non-finite poses, "
+                         f"{r.get('frozen', 0)} frozen")
+    return {r["variant"]: r for r in rows}
+
+
+def phase_tools(dev, records: dict, city_root: str, repro_frames: int, steps: int,
+                keyframes_frames: int) -> None:
+    """The remaining tool twins on the card, over the headline's city: (a)
+    tools/check_headline_torch.py's gate on the headline phase's own result,
+    (b) repro_headline_torch (the kernels on and off), (c) probe_ablate_torch,
+    (d) ablate_step_cost_torch, (e) ablate_keyframes_torch on the stop-and-go
+    city, (f) the three debug steppers."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import ablate_keyframes_torch
+    import bench_torch
+    import ablate_step_cost_torch
+    import check_headline_torch
+    import debug_candidate_gates_torch
+    import debug_sift_nan_torch
+    import debug_track_drift_torch
+    import probe_ablate_torch
+    import repro_headline_torch
+    from vo_tpu_torch.ops import kernels
+
+    fails = []
+    card = _card_line()
+    t0 = time.perf_counter()
+
+    def done(part: str) -> None:
+        print(f"[tools] {part} in {time.perf_counter() - t0:.1f} s from the phase's start",
+              flush=True)
+
+    kernels.reset_launch_counts()
+
+    # (a) The drift gate, on the headline's own run (no second run); a
+    # rehearsal with fewer frames reports and does not gate.
+    res = HANDOFF.get("headline_result")
+    exp = json.loads(check_headline_torch.EXPECTED_PATH.read_text())
+    if res is None:
+        fails.append("(a) the headline phase left no result")
+    else:
+        ok, drift = check_headline_torch.gate(res, exp, exp["tol_pct"])
+        gated = res["frames"] == exp["frames"]
+        print(json.dumps(dict(phase="tools", tool="check_headline_torch", device=card,
+                              ate_rmse_m=res["ate_rmse_m"], expected_ate_m=exp["ate_rmse_m"],
+                              expected_device=exp.get("device"), drift_pct=drift,
+                              tol_pct=exp["tol_pct"], ok=ok, gated=gated)))
+        if gated and not ok:
+            fails.append(f"(a) headline ATE {res['ate_rmse_m']} m drifts {drift:.2f}% from "
+                         f"{exp['ate_rmse_m']} m (tol {exp['tol_pct']}%)")
+
+    # (b) The kernels on and off: each toggle's launches; K2 off changes no bit.
+    imgs, K, seq = bench_torch.read_city(city_root, dev, repro_frames)
+    n = imgs.shape[0] - 3
+    rows = _tools_rows("(b)", repro_headline_torch.repro(imgs, K, seq.gt_poses, dev,
+                                                         also_detect=True), fails, n)
+    del imgs
+    print(json.dumps(dict(phase="tools", tool="repro_headline_torch", device=card,
+                          frames=n + 3, rows=list(rows.values()))))
+    on = n + 1  # the bootstrap's launch and one a step
+    want = {"pallas_auto(default)": (on, 4 * on), "klt_pallas_off": (on, 0),
+            "detect_pallas_off": (0, 4 * on), "all_pallas_off": (0, 0)}
+    for name, (k1, k2) in want.items():
+        r = rows.get(name, {})
+        if "error" not in r and (r.get("k1"), r.get("k2")) != (k1, k2):
+            fails.append(f"(b) {name}: launches K1 {r.get('k1')} / K2 {r.get('k2')}, want "
+                         f"{k1} / {k2}")
+    if not rows.get("klt_pallas_off", {}).get("bit_equal_to_default"):
+        fails.append("(b) klt_pallas_off's poses differ from the default's")
+    _free()
+    done("(b)")
+
+    # (c) The probe ablation at KITTI's frame size, one timed repeat.
+    frames, K, source = probe_ablate_torch.probe_frames(city_root, dev)
+    rows = _tools_rows("(c)", probe_ablate_torch.probe(frames, K, dev, steps, repeats=1),
+                       fails, steps)
+    del frames
+    print(json.dumps(dict(phase="tools", tool="probe_ablate_torch", device=card,
+                          frames=source, steps=steps, repeats=1, rows=list(rows.values()))))
+    k1 = 1 + 2 * steps  # bench (b)'s count for the depth
+    for name, r in rows.items():
+        if "error" not in r and (r["k1"], r["k2"]) != (k1, 4 * k1):
+            fails.append(f"(c) {name}: launches K1 {r['k1']} / K2 {r['k2']}, want "
+                         f"{k1} / {4 * k1}")
+    _free()
+    done("(c)")
+
+    # (d) The step-cost ablation, one timed repeat.
+    imgs, K, _ = bench_torch.read_city(city_root, dev, 3 + steps)
+    rows = _tools_rows("(d)", ablate_step_cost_torch.ablate(imgs, K, dev, steps, repeats=1),
+                       fails, steps)
+    del imgs
+    print(json.dumps(dict(phase="tools", tool="ablate_step_cost_torch", device=card,
+                          steps=steps, repeats=1, rows=list(rows.values()))))
+    _free()
+    done("(d)")
+
+    # (e) The keyframe policies on the stop-and-go city, into its first stop:
+    # adaptive pushes at most once after the camera stops (the baseline it
+    # gathered before), every3 goes on pushing.
+    first = TOOLS_KEYFRAMES_FIRST
+    rows = _tools_rows("(e)", ablate_keyframes_torch.stopgo(
+        str(Path(city_root) / "stopgo"), first + keyframes_frames, dev,
+        ablate_keyframes_torch.trials(), first), fails, keyframes_frames - 3)
+    print(json.dumps(dict(phase="tools", tool="ablate_keyframes_torch", device=card,
+                          scenario="stopgo", first=first, frames=keyframes_frames,
+                          rows=list(rows.values()))))
+    if len(rows) != 3 or not all(np.isfinite(r.get("ate_m", np.nan)) for r in rows.values()):
+        fails.append("(e) want three policies with a finite ATE")
+    stood = {k: r.get("pushes_stopped") for k, r in rows.items()}
+    if rows.get("no-ba", {}).get("pushes") != 0:
+        fails.append(f"(e) no-ba pushed {rows.get('no-ba', {}).get('pushes')} keyframes")
+    elif not rows.get("every3", {}).get("stopped_steps"):
+        fails.append("(e) the rollout never reached the stop")
+    elif not (stood.get("adaptive", 99) <= 1 and stood.get("every3", 0) > stood["adaptive"]):
+        fails.append(f"(e) keyframes pushed while the camera stood: {stood}; want adaptive "
+                     "at most 1 and every3 more")
+    _free()
+    done("(e)")
+
+    # (f) The debug steppers over a few frames each.
+    first, last = TOOLS_DEBUG_FIRST, TOOLS_DEBUG_LAST
+    drift = debug_track_drift_torch.run(city_root, dev, first, last)
+    gates = debug_candidate_gates_torch.run(city_root, dev, first, last)
+    nan = {t: debug_sift_nan_torch.run(city_root, dev, t, last) for t in ("sift", "harris")}
+    print(json.dumps(dict(phase="tools", tool="debug_steppers", device=card, first=first,
+                          last=last, track_drift=drift, candidate_gates=gates,
+                          sift_nan={t: dict(rc=rc, rows=r) for t, (rc, r) in nan.items()})))
+    if len(drift) != last - first or not all(
+            np.isfinite([r["med_r_start"], r["med_r_now"]]).all() for r in drift):
+        fails.append(f"(f) track drift: {len(drift)} finite reports, want {last - first}")
+    if len(gates) != last - first or not all(
+            r["good"] <= r["pass_bear"] <= r["cand"] for r in gates):
+        fails.append("(f) candidate gates: a report missing or counts out of order")
+    for t, (rc, r) in nan.items():
+        if rc != 0 or len(r) != last - 3:
+            fails.append(f"(f) {t}: exit {rc} over {len(r)} frames, want 0 over {last - 3}")
+
+    done("(f)")
+    counts = dict(kernels.launch_counts)
+    print(f"[tools] launches over the phase: {json.dumps(counts)}")
+    records["corner_response_nms"]["launches_tools"] = counts["corner_response_nms"]
+    records["extract_patches"]["launches_tools"] = counts["extract_patches"]
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
 def _probe_toolchain() -> dict:
     """What this machine has for the native frame loader and the figures:
     a C++ compiler, the libpng and libjpeg headers (preprocessed, so every
@@ -991,8 +1172,10 @@ def phase_data(dev, n_frames: int, records: dict) -> None:
         del done
         _free()
 
-        # (d) the dataset lanes over (c)'s layout: the sweep at B = 1 and 6,
-        # then six lanes (seeds 2023 + i), through run_multiseq_torch.main.
+        # (d) the dataset lanes over (c)'s layout, through
+        # run_multiseq_torch.main: the sweep at B = 1, then the dataset mode's
+        # six lanes (seeds 2023 + i). The sweep's B = 6 would repeat the
+        # latter on the one clip, so the sweep runs B = 1 alone.
         batches = []
         run_batch = runner.run_batch
 
@@ -1006,21 +1189,21 @@ def phase_data(dev, n_frames: int, records: dict) -> None:
         lanes = ",".join("abcdef"[:DATA_LANES])
         runner.run_batch = recording
         try:
-            for argv in (["--sweep", f"1,{DATA_LANES}"], ["--sequences", lanes]):
+            for argv, b in ((["--sweep", "1"], 1), (["--sequences", lanes], DATA_LANES)):
                 kernels.reset_launch_counts()
                 t0 = time.perf_counter()
                 rc = runner.main(base + argv)
                 dt = time.perf_counter() - t0
                 counts = dict(kernels.launch_counts)
                 mode = argv[0].lstrip("-")
-                # Each batch: its bootstraps (single launches), then a warm-up
+                # The batch: its bootstraps (single launches), then a warm-up
                 # and a timed rollout; B = 1 launches the single kernels.
                 n = 2 * DATA_LANE_STEPS
-                sizes = [1, DATA_LANES] if mode == "sweep" else [DATA_LANES]
-                want = {"corner_response_nms": sum(sizes) + (n if 1 in sizes else 0),
-                        "extract_patches": 4 * sum(sizes) + (4 * n if 1 in sizes else 0),
-                        "corner_response_nms_batched": n,
-                        "extract_patches_batched": 4 * n}
+                single, batched = (n, 0) if b == 1 else (0, n)
+                want = {"corner_response_nms": b + single,
+                        "extract_patches": 4 * (b + single),
+                        "corner_response_nms_batched": batched,
+                        "extract_patches_batched": 4 * batched}
                 print(json.dumps(dict(phase="data", part=f"lanes_{mode}", rc=rc,
                                       seconds=round(dt, 2), launches=counts, want=want)))
                 if rc != 0 or counts != want:
@@ -1489,11 +1672,22 @@ def main(argv=None) -> int:
     parser.add_argument("--loop-frames", type=int, default=LOOP_FRAMES,
                         help=f"frames of the loop-closure run (default {LOOP_FRAMES}; the "
                              "graph and ATE gates apply only at full length)")
+    parser.add_argument("--repro-frames", type=int, default=TOOLS_REPRO_FRAMES,
+                        help=f"frames of the city the tools phase's kernel on/off runs "
+                             f"cover (default {TOOLS_REPRO_FRAMES})")
+    parser.add_argument("--tools-steps", type=int, default=TOOLS_STEPS,
+                        help=f"steps of the tools phase's probe and step-cost ablations "
+                             f"(default {TOOLS_STEPS})")
+    parser.add_argument("--keyframes-frames", type=int, default=TOOLS_KEYFRAMES_FRAMES,
+                        help=f"frames of the stop-and-go city the tools phase's keyframe "
+                             f"ablation rolls, from frame {TOOLS_KEYFRAMES_FIRST} (default "
+                             f"{TOOLS_KEYFRAMES_FRAMES})")
     args = parser.parse_args(argv)
     if min(args.frames, args.multiseq_frames, args.harris_frames, args.sift_frames,
-           args.loop_frames) < 4 or args.data_frames < 31:
+           args.loop_frames, args.repro_frames, args.keyframes_frames) < 4 \
+            or args.data_frames < 31 or args.tools_steps < 1:
         parser.error("every --*frames must be at least 4, --data-frames at least 31 "
-                     "(the lighting curves' smoothing window)")
+                     "(the lighting curves' smoothing window), --tools-steps at least 1")
 
     import torch
 
@@ -1584,6 +1778,8 @@ def main(argv=None) -> int:
     try:
         run("headline", phase_headline, dev, args.frames, records, city)
         run("bench", phase_bench, dev, records, city)
+        run("tools", phase_tools, dev, records, city, args.repro_frames, args.tools_steps,
+            args.keyframes_frames)
     finally:
         shutil.rmtree(city, ignore_errors=True)
     run("multiseq", phase_multiseq, dev, args.multiseq_frames, records)

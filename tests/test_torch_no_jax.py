@@ -70,6 +70,7 @@ PORT_FILES = sorted((ROOT / "vo_tpu_torch").rglob("*.py")) + [
     ROOT / "bench_torch.py", ROOT / "chip_smoke.py", ROOT / "run_multiseq_torch.py",
     ROOT / "run_vo_torch.py",
 ] + sorted((ROOT / "tools").glob("*_torch.py")) + [
+    ROOT / "tools" / "check_kernels_cuda.py",
     # The rank bodies of the distributed tests: the spawned ranks import it.
     ROOT / "tests" / "torch_dist_ranks.py",
 ]

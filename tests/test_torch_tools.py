@@ -4,7 +4,8 @@ the solver bench (bench_solvers_torch.py) and the pose-graph bench
 (bench_pg_torch.py). Each runs once, gives its rows by name with finite
 values, leaves every device column empty (a CPU run measures no card), and
 refuses to run without a GPU unless asked for the CPU; the solver pairs
-agree."""
+agree. Every other tool twin refuses alike (tests/test_torch_ablate.py and
+test_torch_debug_tools.py run them on the CPU)."""
 
 import dataclasses
 import json
@@ -18,9 +19,18 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 
+import ablate_keyframes_torch  # noqa: E402
+import ablate_step_cost_torch  # noqa: E402
 import bench_pg_torch  # noqa: E402
 import bench_solvers_torch  # noqa: E402
+import check_headline_torch  # noqa: E402
+import check_kernels_cuda  # noqa: E402
+import debug_candidate_gates_torch  # noqa: E402
+import debug_sift_nan_torch  # noqa: E402
+import debug_track_drift_torch  # noqa: E402
+import probe_ablate_torch  # noqa: E402
 import profile_all_torch  # noqa: E402
+import repro_headline_torch  # noqa: E402
 import roofline_torch  # noqa: E402
 from vo_tpu_torch.data import synthetic as tsyn  # noqa: E402
 from vo_tpu_torch.utils.config import VOConfig  # noqa: E402
@@ -28,7 +38,10 @@ from vo_tpu_torch.utils.config import VOConfig  # noqa: E402
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
-TOOLS = [roofline_torch, profile_all_torch, bench_solvers_torch, bench_pg_torch]
+TOOLS = [roofline_torch, profile_all_torch, bench_solvers_torch, bench_pg_torch,
+         check_headline_torch, probe_ablate_torch, ablate_step_cost_torch,
+         ablate_keyframes_torch, repro_headline_torch, debug_track_drift_torch,
+         debug_candidate_gates_torch, debug_sift_nan_torch, check_kernels_cuda]
 
 
 def _last_json(out: str) -> dict:

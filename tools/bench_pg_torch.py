@@ -31,6 +31,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import bench_torch  # noqa: E402  (imports nothing of the port at load)
+import common_torch  # noqa: E402  (the tools' shared plumbing)
 
 LOOP_EDGES = 32
 
@@ -109,13 +110,9 @@ def main(argv=None) -> int:
                    help="cuda (default; exits 2 without a GPU) or cpu, only when asked")
     args = p.parse_args(argv)
 
-    import torch
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("bench_pg_torch: no CUDA device visible (pass --device cpu to run on the CPU)",
-              file=sys.stderr)
+    dev = common_torch.cuda_or_cpu(args.device, "bench_pg_torch")
+    if dev is None:
         return 2
-    dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
     card = bench_torch.card_name(dev)
     print(f"[card] {card}")
     print(json.dumps({"tool": "bench_pg_torch", "device": card,

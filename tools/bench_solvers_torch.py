@@ -42,6 +42,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import bench_torch  # noqa: E402  (imports nothing of the port at load)
+import common_torch  # noqa: E402  (the tools' shared plumbing)
 
 BA_LANDMARKS, BA_WINDOW = 1024, 6
 PNP_SOLVES = 10
@@ -149,13 +150,9 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=30)
     args = p.parse_args(argv)
 
-    import torch
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("bench_solvers_torch: no CUDA device visible (pass --device cpu to run on the "
-              "CPU)", file=sys.stderr)
+    dev = common_torch.cuda_or_cpu(args.device, "bench_solvers_torch")
+    if dev is None:
         return 2
-    dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
     card = bench_torch.card_name(dev)
     print(f"[card] {card}")
     print(json.dumps({"tool": "bench_solvers_torch", "device": card,

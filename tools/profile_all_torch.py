@@ -52,6 +52,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import bench_torch  # noqa: E402  (imports nothing of the port at load)
+import common_torch  # noqa: E402  (the tools' shared plumbing)
 
 CAPACITY = 1024
 DESC_D = 19 * 19  # the matcher's descriptor length (patch radius 9)
@@ -235,13 +236,9 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=3)
     args = p.parse_args(argv)
 
-    import torch
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("profile_all_torch: no CUDA device visible (pass --device cpu to run on the "
-              "CPU)", file=sys.stderr)
+    dev = common_torch.cuda_or_cpu(args.device, "profile_all_torch")
+    if dev is None:
         return 2
-    dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
     card = bench_torch.card_name(dev)
     print(f"[card] {card}")
     frames, K = read_frames(args.dataset, args.data_root, dev)

@@ -53,6 +53,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import bench_torch  # noqa: E402  (imports nothing of the port at load)
+import common_torch  # noqa: E402  (the tools' shared plumbing)
 import chip_smoke  # noqa: E402  (the timing helpers and the kernels' models)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -232,13 +233,9 @@ def main(argv=None) -> int:
     p.add_argument("--json", default="", help="also write the rows here")
     args = p.parse_args(argv)
 
-    import torch
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("roofline_torch: no CUDA device visible (pass --device cpu to run on the CPU)",
-              file=sys.stderr)
+    dev = common_torch.cuda_or_cpu(args.device, "roofline_torch")
+    if dev is None:
         return 2
-    dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
     card = bench_torch.card_name(dev)
     rows = roofline(dev, args.reps)
     print_table(rows, card)

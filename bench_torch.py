@@ -11,14 +11,18 @@ Headline: the 600-frame synthetic city (exact GT, two 90-degree turns) read
 through `Sequence("synthetic", path=--data-root)` (rendered on the device into
 <root>/synthetic the first time), bootstrapped on frames 0 and 2 with a
 generator seeded 2023, moved to the device in one transfer, rolled once to
-warm up and once timed with `vo_rollout` (one synchronize at the end), then
-ATE/RPE against the exact GT.
+warm up (eagerly) and once timed with `vo_rollout` (one synchronize at the
+end), then ATE/RPE against the exact GT. The timed rollout replays the
+step's CUDA graphs (models/graphed.py), captured between the two rollouts:
+the line's `executor` says so ("eager" on the CPU), `warm_fps` is the eager
+warm-up's frames/s and `capture_s` the capture's seconds.
 
 The two rollouts start from the same state and make the same RANSAC draws:
 the state's sampler is a stateful `torch.Generator` (in the JAX package the
 key sits inside the immutable state), so its state is saved before the
-warm-up and restored before the timed run; `vo_step` writes no state tensor
-in place.
+warm-up and restored before the timed run; neither `vo_step` nor the
+captured rollout writes the caller's state (the graphs run on static
+buffers of their own and hand back copies).
 
 Secondary: the KITTI-05-sized probe (bench.py's `bench_kitti_probe`): the
 frames of KITTI 05 under `--kitti-root` (the `kitti/05` layout that
@@ -57,6 +61,9 @@ class Rollouts(NamedTuple):
     timed: Any  # StepOutput of the timed rollout
     state: Any  # the timed rollout's final VOState
     seconds: float  # the timed rollout on the host clock, one sync at its end
+    warm_seconds: float  # the eager warm-up, likewise
+    capture_seconds: float  # capturing the timed rollout's graphs (0.0: eager)
+    executor: str  # what the timed rollout ran: "graphs" or "eager"
 
 
 class SyntheticRun(NamedTuple):
@@ -75,15 +82,25 @@ def sync(dev) -> None:
 
 
 def warm_and_timed(state, stack, K, cfg, repeats: int = 1) -> Rollouts:
-    """`vo_rollout` over `stack` from `state`: a warm-up, then `repeats`
-    timed runs with the same draws (the sampler rewound to where it stood
-    before each); `seconds` is the best of them."""
-    from vo_tpu_torch.models.pipeline import vo_rollout
+    """`vo_rollout` over `stack` from `state`: an eager warm-up, the capture
+    of the step's CUDA graphs outside the timed window (as the JAX package
+    compiles inside its warm-up), then `repeats` timed runs that replay
+    them (the CPU runs them eagerly), each with the warm-up's draws (the
+    sampler rewound to where it stood before it); `seconds` is the best of
+    them, `executor` what the timed runs ran."""
+    from vo_tpu_torch.models.graphed import capture_ahead
+    from vo_tpu_torch.models.pipeline import ROLLED, executor_since, vo_rollout
 
     dev = stack.device
     saved = state.rng.get_state()
-    _, warm = vo_rollout(state, stack, K, cfg)
+    sync(dev)
+    t0 = time.perf_counter()
+    _, warm = vo_rollout(state, stack, K, cfg, graph=False)
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    capture_s = capture_ahead(state, stack, K, cfg)
     best = float("inf")
+    before = dict(ROLLED)
     for _ in range(repeats):
         state.rng.set_state(saved)
         sync(dev)
@@ -91,7 +108,7 @@ def warm_and_timed(state, stack, K, cfg, repeats: int = 1) -> Rollouts:
         final, timed = vo_rollout(state, stack, K, cfg)
         sync(dev)
         best = min(best, time.perf_counter() - t0)
-    return Rollouts(warm, timed, final, best)
+    return Rollouts(warm, timed, final, best, warm_s, capture_s, executor_since(before))
 
 
 def step_poses(boot_pose, outs) -> np.ndarray:
@@ -149,6 +166,8 @@ def bench_synthetic_full(device, data_root: str = "./data",
     ate, t_rpe, r_rpe = trajectory_errors(boot_pose, runs.timed, seq.gt_poses)
     result = {
         "value": round(steps / runs.seconds, 3),
+        "warm_fps": round(steps / runs.warm_seconds, 3),
+        "capture_s": round(runs.capture_seconds, 3),
         "frames": int(steps),
         "ate_rmse_m": round(ate, 4),
         "rpe_trans_m": round(t_rpe, 5),
@@ -216,12 +235,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
     from vo_tpu_torch.data import Sequence
 
-    synth = bench_synthetic_full(dev, args.data_root, SYNTHETIC_CAPACITY).result
+    run = bench_synthetic_full(dev, args.data_root, SYNTHETIC_CAPACITY)
+    synth = run.result
     line = {
         "metric": "vo_full_sequence_600_frames",
         "value": synth["value"],
         "unit": "frames/s",
         "vs_baseline": None,
+        "executor": run.rollouts.executor,
+        "warm_fps": synth["warm_fps"],
+        "capture_s": synth["capture_s"],
         "device": card_name(dev),
         "ate_rmse_m": synth["ate_rmse_m"],
         "rpe_trans_m": synth["rpe_trans_m"],

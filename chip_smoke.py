@@ -29,16 +29,21 @@ Phases:
   7. `headline`: bench_torch.py's headline through its own
      `bench_synthetic_full`: the synthetic city written to disk by
      `generate` and read back through `Sequence("synthetic")`, two frames
-     checked against the numpy renderer, bootstrap, then a warm-up and a
-     timed `vo_rollout` with VOConfig(capacity=1024); gates the launch counts
-     of both rollouts, the timed poses bit-equal to the warm-up's,
-     finiteness, the pose_ok count and the ATE against exact ground truth;
+     checked against the numpy renderer, bootstrap, then an eager warm-up
+     and a timed `vo_rollout` that replays the step's CUDA graphs
+     (vo_tpu_torch/models/graphed.py, captured between the two) with
+     VOConfig(capacity=1024); gates the launch counts of both rollouts,
+     every StepOutput field of the captured rollout bit-equal to the eager
+     warm-up's, finiteness, the pose_ok count and the ATE against exact
+     ground truth; prints both frames/s, the capture's seconds, the graphs
+     and their nodes, the host syncs a step, the eager boundaries and the
+     recovery and keyframe branches taken;
   7b. `bench`: the measurement entry points. (a) K1 and the K2 pair at KITTI
      05's frame size (370x1226) and its pyramid levels against their plain
      versions, timed; (b) bench_torch's `bench_kitti_probe` over the first 6
      frames of the city rendered at 1226x370, focal 707.0912 (capacity 512,
-     40 ping-ponged steps, warm-up and timed: launch counts, finite, 0
-     frozen); (c) tools/roofline_torch.py and tools/profile_all_torch.py over
+     40 ping-ponged steps, an eager warm-up and a captured timed rollout:
+     launch counts, finite, 0 frozen, the two bit-equal); (c) tools/roofline_torch.py and tools/profile_all_torch.py over
      the 640x480 city (host against device time, part by part); (d)
      tools/bench_solvers_torch.py (the solver pairs agree within 1e-4) and
      tools/bench_pg_torch.py (the error falls; one rank equals pg_optimize);
@@ -61,10 +66,10 @@ Phases:
   8. `multiseq`: the lockstep multi-sequence evaluation at full width (the
      entry points of run_multiseq_torch.py --full): six distinct cities,
      640x480, capacity 512, bootstrapped alone, stacked and rolled in
-     lockstep in chunks of 64, then the distorted-lens lane on its own;
-     gates the batched launch counts, finiteness, per-lane pose_ok and, at
-     the full 600 frames a lane (`--multiseq-frames 600`; 60 by default),
-     the ATE;
+     lockstep in chunks of 64 (captured), then the distorted-lens lane on
+     its own; gates the batched launch counts, finiteness, per-lane pose_ok,
+     every lane bit-equal to the same lanes rolled eagerly and, at the full
+     600 frames a lane (`--multiseq-frames 600`; 60 by default), the ATE;
   9. `data`: the disk data layer at full width. (a) what the machine has
      for decoding (g++, the png.h and jpeglib.h headers, PIL, cv2,
      matplotlib); the native frame loader must build where the headers
@@ -93,7 +98,8 @@ Phases:
      circuit (KLT + BA + the Sim(3) pose-graph back-end), gating the launch
      counts, the graph's size, the verified loops and the ATE before and
      after the correction; then the checkpoint written mid-run is resumed
-     for 16 frames and held bit for bit against the straight run.
+     for 16 frames through a fresh runner (the graphs captured anew) and
+     held bit for bit against the straight run.
      Each prints one JSON line.
  11. `dist`: the distributed layer (vo_tpu_torch.parallel). (a) In a real
      single-rank NCCL group on cuda:0, the four sharded solvers at full width
@@ -112,6 +118,12 @@ Every kernel time is taken twice: `ms` by CUDA events around 50 eager calls
 of the wrapper (what the path pays; at these sizes mostly the host's enqueue)
 and `device_ms` by replaying the same calls captured in a CUDA graph (what
 the device needs once the host is out of the way).
+
+Every rollout of every phase replays the step's CUDA graphs unless it is
+an eager warm-up or the eager comparison named above; a capture or a replay
+that fails raises and fails its phase (nothing falls back to eager). The
+kernels' launch counts are the graphs' replays': a capture records what a
+graph launches and each replay adds it.
 
 Prints the card line, a JSON line describing every kernel (its times beside
 its bound, the plain version and, where there is one, a single PyTorch
@@ -138,6 +150,7 @@ import numpy as np
 REFERENCE_ATE_M = 1.181  # tools/headline_expected.json (the JAX package)
 ATE_GATE_M = 1.77  # 1.5x the reference, just above its 1.753 m regression
 POSE_OK_SLACK = 7  # pose_ok must hold on all but this many frames
+TRACED_FRAMES = 8  # frames of captured replays traced by torch.profiler
 
 # Shapes: not a multiple of the kernel's tile, less than one tile, full size.
 K1_SHAPES = [(150, 260), (64, 200), (30, 40), (480, 640)]
@@ -587,7 +600,10 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
 
     import bench_torch
     from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.models import graphed
+    from vo_tpu_torch.models.pipeline import vo_rollout
     from vo_tpu_torch.ops import kernels
+    from vo_tpu_torch.utils.cache import runner_key
     from vo_tpu_torch.utils.config import VOConfig
 
     levels = VOConfig().klt.pyramid_levels
@@ -596,6 +612,7 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     synthetic.generate(str(Path(city_root) / "synthetic"), spec, verbose=False, device=dev)
     print(f"[headline] wrote {n_frames} frames of the city in {time.perf_counter() - t0:.1f} s")
 
+    graphed.RUNNERS.clear()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     run = bench_torch.bench_synthetic_full(dev, city_root)
@@ -603,25 +620,57 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     counts = dict(kernels.launch_counts)
     warm, outs = run.rollouts.warm, run.rollouts.timed
     steps = outs.pose.shape[0]
+    cfg = VOConfig(capacity=bench_torch.SYNTHETIC_CAPACITY)
+    frame = torch.from_numpy(run.seq.get_frame(0))
+    runner = graphed.RUNNERS.find(runner_key(cfg, 1, *frame.shape, frame.dtype, dev))
+    # The replays as the card ran them: TRACED_FRAMES more frames (the last
+    # ones, backwards) through the same runner under torch.profiler; the
+    # trace's K1 and K2 kernels against the launches the runner counted.
+    back = torch.as_tensor(np.stack([run.seq.get_frame(len(run.seq) - 1 - i)
+                                     for i in range(TRACED_FRAMES)]), device=dev)
+    captures = graphed.RUNNERS.captures
+    traced = _traced_kernels(lambda: vo_rollout(
+        run.rollouts.state, back, torch.as_tensor(run.seq.K, device=dev), cfg))
+    print(f"[headline] {TRACED_FRAMES} traced replays: kernels in the trace "
+          f"{traced['trace']}, launches counted {traced['counted']}")
 
     poses = bench_torch.step_poses(run.boot_pose, outs)
     pose_ok = int(outs.pose_ok.sum())
     frozen = int(outs.frozen.sum())
     finite = int(np.isfinite(poses[2:]).all(axis=(1, 2)).sum())
-    same = bool(torch.equal(warm.pose, outs.pose))
+    # The eager warm-up against the captured timed rollout: every field.
+    equal = {name: bool(torch.equal(a, b)) for name, a, b in zip(outs._fields, warm, outs)}
+    same = all(equal.values())
     res = run.result
     ate = res["ate_rmse_m"]
     print(f"[headline] bench_synthetic_full: {t_all:.1f} s (decode, bootstrap, warm-up and "
-          f"timed rollouts); the timed {steps} steps in {run.rollouts.seconds:.2f} s = "
-          f"{res['value']:.2f} frames/s")
+          f"timed rollouts); the eager warm-up {res['warm_fps']:.2f} frames/s, the capture "
+          f"{res['capture_s']:.2f} s, the timed {steps} steps ({run.rollouts.executor}) in "
+          f"{run.rollouts.seconds:.2f} s = {res['value']:.2f} frames/s")
+    graphs = None
+    if runner is not None:
+        st = runner.stats
+        graphs = dict(graphs=st.graphs, nodes=sum(n or 0 for n in st.graphs.values()),
+                      capture_s=round(st.capture_s, 3),
+                      syncs_per_step=st.syncs / max(st.frames, 1),
+                      recoveries=st.recoveries, keyframe_replays=st.keyframes,
+                      frames=st.frames, boundaries=list(st.boundaries))
+        print(f"[headline] graphs and their nodes {st.graphs}; host syncs a step "
+              f"{graphs['syncs_per_step']:.2f}; recovery ran on {st.recoveries} of "
+              f"{st.frames} frames, C replayed on {st.keyframes}")
+        for b in st.boundaries:
+            print(f"[headline] eager between graphs: {b}")
     print(f"[headline] ATE {ate:.4f} m (reference {REFERENCE_ATE_M} m, drift "
           f"{100.0 * (ate - REFERENCE_ATE_M) / REFERENCE_ATE_M:+.1f}%), "
           f"RPE {res['rpe_trans_m']:.5f} m / {res['rpe_rot_deg']:.5f} deg")
     print(f"[headline] pose_ok {pose_ok}/{steps}, finite {finite}/{steps}, frozen {frozen}; "
-          f"timed poses bit-equal to the warm-up's: {same}")
+          f"the captured rollout's StepOutputs bit-equal to the eager warm-up's: {same}")
     print(f"[headline] launches (bootstrap + both rollouts): {json.dumps(counts)}")
-    print(json.dumps(dict(phase="headline", **res, seconds=run.rollouts.seconds,
-                          warm_equals_timed=same, launches=counts)))
+    print(json.dumps(dict(phase="headline", **res, executor=run.rollouts.executor,
+                          seconds=run.rollouts.seconds,
+                          warm_seconds=run.rollouts.warm_seconds,
+                          warm_equals_timed=same, fields_equal=equal, graphs=graphs,
+                          launches=counts, traced=traced)))
     records["corner_response_nms"]["launches"] = counts["corner_response_nms"]
     records["extract_patches"]["launches"] = counts["extract_patches"]
     HANDOFF["ba_window"] = (run.rollouts.state.window, torch.as_tensor(run.seq.K, device=dev))
@@ -650,7 +699,18 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
         fails.append(f"K2 launched {counts['extract_patches']} times, want {levels * want_k1}")
     if not same:
         d = float((warm.pose - outs.pose).abs().max())
-        fails.append(f"the timed rollout's poses differ from the warm-up's (max {d:.3g})")
+        fails.append(f"the captured rollout differs from the eager warm-up in "
+                     f"{[k for k, v in equal.items() if not v]} (poses max {d:.3g})")
+    if run.rollouts.executor != "graphs" or runner is None:
+        fails.append(f"the timed rollout ran {run.rollouts.executor}, not the captured graphs")
+    want_traced = {"corner_nms_kernel": TRACED_FRAMES,
+                   "patch_gather_kernel": levels * TRACED_FRAMES}
+    if (traced["trace"] != want_traced or traced["counted"] != want_traced
+            or traced["executor"] != "graphs" or graphed.RUNNERS.captures != captures):
+        fails.append(f"{TRACED_FRAMES} traced frames ran {traced['executor']} "
+                     f"({graphed.RUNNERS.captures - captures} new captures) with kernels "
+                     f"{traced['trace']} in the trace and {traced['counted']} counted, "
+                     f"want {want_traced} of the cached runner's graphs")
     if finite != steps or frozen:
         fails.append(f"{steps - finite} non-finite poses, {frozen} frozen frames")
     if pose_ok < steps - POSE_OK_SLACK:
@@ -659,6 +719,32 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
         fails.append(f"ATE {ate:.4f} m above the {ATE_GATE_M} m gate")
     if fails:
         raise AssertionError("; ".join(fails))
+
+
+def _traced_kernels(fn) -> dict:
+    """One call of fn (rollouts) under torch.profiler, device activity only:
+    the kernels of ops/kernels.py in the trace ("trace") and the launches
+    their wrappers counted ("counted"), both by the kernel's symbol, and
+    what the rollouts ran ("executor")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vo_tpu_torch.models.pipeline import ROLLED, executor_since
+    from vo_tpu_torch.ops import kernels
+
+    symbols = sorted(set(kernels.SYMBOLS.values()))
+    rolled = dict(ROLLED)
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(
+        trace={s: sum(e.count for e in events if s in e.key) for s in symbols},
+        counted={s: sum(n for c, n in kernels.launch_counts.items()
+                        if kernels.SYMBOLS[c] == s) for s in symbols},
+        executor=executor_since(rolled))
 
 
 def phase_multiseq(dev, n_frames: int, records: dict) -> None:
@@ -732,7 +818,21 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
     for i, name in enumerate(names):
         gt = seqs[name].gt_poses[[0, 2] + list(range(3, 3 + steps))]
         judge(name, runner.lane_poses(boot[i], poses[:, i]), gt, pose_ok[i], frozen[i], steps)
-    del seqs, outs
+
+    # The same lanes rolled eagerly: the captured rollout equals it, every
+    # StepOutput field of every lane, bit for bit.
+    _, eager, edt = runner.run_lockstep(seqs, cfg, adaptive=synthetic.ADAPTIVE_LANES,
+                                        graph=False)
+    equal = [all(torch.equal(a[:, i], e[:, i]) for a, e in zip(outs, eager))
+             for i in range(b)]
+    print(f"[multiseq] eager lockstep: {b * steps / edt:.2f} frames/s aggregate against "
+          f"{b * steps / dt:.2f} captured; lanes bit-equal to the eager rollout: {equal}")
+    print(json.dumps(dict(phase="multiseq", lanes=names, steps=steps,
+                          agg_fps_graphs=b * steps / dt, agg_fps_eager=b * steps / edt,
+                          lanes_equal_eager=equal, launches=counts)))
+    if not all(equal):
+        fails.append(f"captured lanes differ from the eager rollout: {equal}")
+    del seqs, outs, eager
     torch.cuda.empty_cache()
 
     # The distorted-lens lane on its own (distortion is static in the config).
@@ -813,6 +913,8 @@ def _kitti_sized_probe(dev, records: dict, fails: list) -> None:
     line = dict(phase="bench", part="kitti_sized_probe", frame=[KITTI_H, KITTI_W],
                 focal=KITTI_FOCAL, frames=BENCH_PROBE_FRAMES, steps=steps,
                 capacity=bench_torch.KITTI_CAPACITY, kitti05_sized_fps=fps,
+                executor=runs.executor, warm_fps=steps / runs.warm_seconds,
+                capture_s=runs.capture_seconds,
                 seconds=runs.seconds, pose_ok=int(runs.timed.pose_ok.sum()), finite=finite,
                 frozen=frozen, warm_equals_timed=same, launches=counts)
     print(json.dumps(line))
@@ -825,6 +927,8 @@ def _kitti_sized_probe(dev, records: dict, fails: list) -> None:
         fails.append(f"(b) {steps - finite} non-finite timed poses, {frozen} frozen frames")
     if not same:
         fails.append("(b) the timed rollout's poses differ from the warm-up's")
+    if runs.executor != "graphs":
+        fails.append(f"(b) the timed rollout ran {runs.executor}, not the captured graphs")
     records["corner_response_nms"]["launches_bench"] = counts["corner_response_nms"]
     records["extract_patches"]["launches_bench"] = counts["extract_patches"]
 
@@ -1252,9 +1356,13 @@ def _run_gates(tag: str, done, fails: list, share: float = RUN_POSE_OK_SHARE) ->
 
 
 def _free() -> None:
-    """Hand the device memory of the runs just dropped back to the card."""
+    """Hand the device memory of the runs just dropped back to the card,
+    the captured runners' graphs and static buffers included."""
     import torch
 
+    from vo_tpu_torch.models import graphed
+
+    graphed.RUNNERS.clear()
     torch.cuda.empty_cache()
 
 
@@ -1337,6 +1445,7 @@ def phase_loop(dev, n_frames: int, records: dict) -> None:
 
     import torch
 
+    from vo_tpu_torch.models import graphed
     from vo_tpu_torch.ops import kernels
     from vo_tpu_torch.utils.config import VOConfig
 
@@ -1368,6 +1477,8 @@ def phase_loop(dev, n_frames: int, records: dict) -> None:
         line = dict(phase="loop", **_run_gates("loop", done, fails),
                     **res, launches=counts,
                     loops=done.backend.loops, rejected=len(done.backend.rejected))
+        if res["executor"] != "graphs":
+            fails.append(f"the loop ran {res['executor']}, not the captured graphs")
         steps = line["steps"]
         want = {"corner_response_nms": 1 + steps, "extract_patches": levels * (1 + steps),
                 "corner_response_nms_batched": 0, "extract_patches_batched": 0}
@@ -1397,7 +1508,14 @@ def phase_loop(dev, n_frames: int, records: dict) -> None:
             fails.append("no checkpoint with a chunk after it was seen in the run")
         else:
             upto = seen["frame"]
+            # A fresh runner: the resume captures its graphs anew.
+            graphed.RUNNERS.clear()
+            captures = graphed.RUNNERS.captures
             back = _drive(base + ["--resume", ckpt, "--max-frames", str(upto + 1)])
+            if graphed.RUNNERS.captures != captures + 1 or back.result["executor"] != "graphs":
+                fails.append(f"the resume ran {back.result['executor']} with "
+                             f"{graphed.RUNNERS.captures - captures} fresh captures, want "
+                             "graphs and 1")
             n_rows = done.frame_ids.index(upto) + 1
             same_ids = back.frame_ids == done.frame_ids[:n_rows]
             same_poses = same_ids and np.array_equal(back.poses_raw, done.poses_raw[:n_rows])

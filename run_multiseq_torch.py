@@ -46,6 +46,11 @@ landmarks back by uid and applies the newest keyframe's rigid correction to
 the live pose. It reports ATE with and without that back-end. Ranks use NCCL
 when each has a card of its own and Gloo otherwise (`--backend` chooses);
 every line says which.
+
+On the card every rollout replays the step's CUDA graphs, captured once per
+shape (vo_tpu_torch/models/graphed.py) and outside the timed windows;
+`--no-graph` runs it eagerly, with the same results. The JSON lines name
+the `executor` ("graphs" or "eager").
 """
 
 from __future__ import annotations
@@ -87,6 +92,9 @@ def parse_args(argv=None):
                         "instead of the CUDA kernels (fault isolation)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (default; fails without a GPU) or cpu, only when asked")
+    p.add_argument("--no-graph", action="store_true",
+                   help="run the step eagerly, op by op, instead of replaying its CUDA "
+                        "graphs (the counterpart of jax.disable_jit)")
     p.add_argument("--multihost", default="",
                    help="comma-separated rank counts (e.g. 1,2): a cluster of "
                         "multihost worker ranks for each, then the weak-scaling table")
@@ -122,13 +130,16 @@ def lane_poses(first_pose, step_poses) -> np.ndarray:
     ])
 
 
-def run_lockstep(seqs: dict, cfg, seed: int = 2023, adaptive=()):
+def run_lockstep(seqs: dict, cfg, seed: int = 2023, adaptive=(), graph: bool = True):
     """Bootstrap every lane of `seqs` (name -> Sequence) alone with its own
     sampler (seed + lane index), stack the states and roll all lanes in
-    lockstep over frames 3.. in chunks. Returns (boot_poses (B, 4, 4),
-    outs: StepOutput stacked to (N, B, ...), seconds of the rollout)."""
+    lockstep over frames 3.. in chunks (replaying the step's CUDA graphs,
+    captured before the clock starts; `graph=False`: eagerly). Returns
+    (boot_poses (B, 4, 4), outs: StepOutput stacked to (N, B, ...), seconds
+    of the rollout)."""
     import torch
 
+    from vo_tpu_torch.models.graphed import capture_ahead
     from vo_tpu_torch.models.pipeline import StepOutput, bootstrap
     from vo_tpu_torch.parallel.multiseq import batched_vo_rollout, stack_states
 
@@ -150,31 +161,35 @@ def run_lockstep(seqs: dict, cfg, seed: int = 2023, adaptive=()):
     images = torch.stack([seqs[name].frames[3:3 + n_steps] for name in names], dim=1)
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    capture_ahead(batched, images, Ks, cfg, graph)
     outs = []
     sync()
     t0 = time.perf_counter()
     for lo in range(0, n_steps, CHUNK):
-        batched, out = batched_vo_rollout(batched, images[lo:lo + CHUNK], Ks, cfg)
+        batched, out = batched_vo_rollout(batched, images[lo:lo + CHUNK], Ks, cfg, graph)
         outs.append(out)
     sync()
     dt = time.perf_counter() - t0
     return boot_poses, StepOutput(*(torch.cat(f) for f in zip(*outs))), dt
 
 
-def run_single(seq, cfg, seed: int):
-    """One sequence through bootstrap + `vo_rollout` (the distorted lane).
-    Returns (boot_pose, outs, seconds)."""
+def run_single(seq, cfg, seed: int, graph: bool = True):
+    """One sequence through bootstrap + `vo_rollout` (the distorted lane),
+    captured before the clock starts (`graph=False`: eagerly). Returns
+    (boot_pose, outs, seconds)."""
     import torch
 
+    from vo_tpu_torch.models.graphed import capture_ahead
     from vo_tpu_torch.models.pipeline import bootstrap, vo_rollout
 
     dev = seq.frames.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     st, _ = bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg, gen)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    capture_ahead(st, seq.frames[3:], seq.K, cfg, graph)
     sync()
     t0 = time.perf_counter()
-    _, outs = vo_rollout(st, seq.frames[3:], seq.K, cfg)
+    _, outs = vo_rollout(st, seq.frames[3:], seq.K, cfg, graph)
     sync()
     return st.pose.cpu().numpy(), outs, time.perf_counter() - t0
 
@@ -229,11 +244,12 @@ def run_batch(args, seq_ids, cfg, dev):
         return stack_states(states)
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    batched_vo_rollout(lanes(), stack, Ks, cfg)  # warm-up
+    graph = not args.no_graph
+    batched_vo_rollout(lanes(), stack, Ks, cfg, graph)  # warm-up (and capture)
     batched = lanes()
     sync()
     t0 = time.perf_counter()
-    _, outs = batched_vo_rollout(batched, stack, Ks, cfg)
+    _, outs = batched_vo_rollout(batched, stack, Ks, cfg, graph)
     sync()
     dt = time.perf_counter() - t0
     boot = torch.stack([st.pose for st in states]).cpu().numpy()
@@ -257,6 +273,7 @@ def run_dataset(args) -> int:
     """The dataset lanes (`--sequences`) or the batch-size sweep (`--sweep`)."""
     import torch
 
+    from vo_tpu_torch.models.pipeline import ROLLED, executor_since
     from vo_tpu_torch.utils.config import DetectorConfig, KLTConfig, VOConfig
 
     if _no_cuda(args):
@@ -268,16 +285,19 @@ def run_dataset(args) -> int:
                      klt=KLTConfig(use_pallas=False))
     cfg = VOConfig(capacity=args.capacity, **plain)
     device = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    rolled = dict(ROLLED)
     if args.sweep:
         rows = []
         base = None
         for b in [int(x) for x in args.sweep.split(",")]:
+            row = dict(ROLLED)
             fps = run_batch(args, [args.sequences.split(",")[0]] * b, cfg, dev)[0]
             base = base or fps
             rows.append({"batch": b, "agg_fps": round(fps, 2),
-                         "scaling": round(fps / base, 3)})
+                         "scaling": round(fps / base, 3), "executor": executor_since(row)})
             print(json.dumps(rows[-1]), flush=True)
-        print(json.dumps({"metric": "multiseq_scaling", "rows": rows}))
+        print(json.dumps({"metric": "multiseq_scaling", "rows": rows,
+                          "executor": executor_since(rolled)}))
         return 0
     seq_ids = args.sequences.split(",")
     fps, ates, _, _ = run_batch(args, seq_ids, cfg, dev)
@@ -286,6 +306,7 @@ def run_dataset(args) -> int:
         "batch": len(seq_ids),
         "agg_fps": round(fps, 2),
         "ate_rmse_m": ates,
+        "executor": executor_since(rolled),
         "device": device,
     }))
     return 0
@@ -295,6 +316,7 @@ def run_full(args) -> int:
     import torch
 
     from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.models.pipeline import ROLLED, executor_since
     from vo_tpu_torch.utils.config import DetectorConfig, KLTConfig, VOConfig
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -309,7 +331,9 @@ def run_full(args) -> int:
     cfg = VOConfig(capacity=args.capacity, **plain)
 
     seqs = synthetic.multiseq_sequences(dev, args.full_frames, args.full_lanes)
-    boot, outs, dt = run_lockstep(seqs, cfg, adaptive=synthetic.ADAPTIVE_LANES)
+    graph = not args.no_graph
+    rolled = dict(ROLLED)
+    boot, outs, dt = run_lockstep(seqs, cfg, adaptive=synthetic.ADAPTIVE_LANES, graph=graph)
     poses = outs.pose.cpu().numpy()  # (N, B, 4, 4)
     n_steps = poses.shape[0]
     lanes = []
@@ -323,7 +347,7 @@ def run_full(args) -> int:
     # Distorted-lens lane (config-static coefficients -> a run of its own).
     dseq = synthetic.render_sequence(synthetic.distorted_spec(args.full_frames), dev)
     dcfg = dataclasses.replace(cfg, dist=synthetic.DISTORTED_DIST)
-    dboot, douts, _ = run_single(dseq, dcfg, seed=2030)
+    dboot, douts, _ = run_single(dseq, dcfg, seed=2030, graph=graph)
     dgt = dseq.gt_poses[[0, 2] + list(range(3, dseq.frames.shape[0]))]
     lanes.append(lane_report("distorted", lane_poses(dboot, douts.pose.cpu().numpy()), dgt))
     print(json.dumps(lanes[-1]), flush=True)
@@ -334,6 +358,7 @@ def run_full(args) -> int:
         "batch": batch,
         "steps": int(n_steps),
         "agg_fps": round(batch * n_steps / dt, 2),
+        "executor": executor_since(rolled),
         "device": torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu",
     }))
     return 0
@@ -397,6 +422,8 @@ def seqpar_cluster(args) -> dict:
            str(args.seqpar_shards), "--seqpar-steps", str(args.seqpar_steps),
            "--capacity", str(args.capacity), "--scale", str(args.scale),
            "--device", args.device, "--coordinator", f"localhost:{free_port()}"]
+    if args.no_graph:
+        cmd.append("--no-graph")
     if args.backend:
         cmd += ["--backend", args.backend]
     outs = multihost.launch(
@@ -430,7 +457,7 @@ def run_seqpar_rank(args) -> int:
     from vo_tpu_torch.geom.lie import pose_inverse
     from vo_tpu_torch.models.ba import BAWindow, empty_window
     from vo_tpu_torch.models.feature_table import STATE_TRIANGULATED
-    from vo_tpu_torch.models.pipeline import bootstrap, vo_rollout
+    from vo_tpu_torch.models.pipeline import ROLLED, bootstrap, executor_since, vo_rollout
     from vo_tpu_torch.ops import kernels
     from vo_tpu_torch.parallel import multihost
     from vo_tpu_torch.parallel.mesh import broadcast, make_mesh
@@ -477,7 +504,8 @@ def run_seqpar_rank(args) -> int:
                              torch.Generator(device=dev).manual_seed(2023))
         poses = []
         for c in range(3, n, SEQPAR_CHUNK):
-            state, outs = vo_rollout(state, seq.frames[c:c + SEQPAR_CHUNK], K, cfg)
+            state, outs = vo_rollout(state, seq.frames[c:c + SEQPAR_CHUNK], K, cfg,
+                                     not args.no_graph)
             poses.append(outs.pose)
             if with_backend and bool(state.window.kf_valid[-1]):
                 command(1)
@@ -500,6 +528,7 @@ def run_seqpar_rank(args) -> int:
         ate = float(ate_rmse(positions_from_poses(est), positions_from_poses(gt)))
         return ate, bool(np.isfinite(est).all())
 
+    rolled = dict(ROLLED)
     try:
         plain = rollout(False)
         kernels.reset_launch_counts()
@@ -529,6 +558,7 @@ def run_seqpar_rank(args) -> int:
         "improvement_x": round(ate_plain / max(ate_seqpar, 1e-9), 2),
         "passed": bool(finite and ate_seqpar < ate_plain),
         "launches": dict(kernels.launch_counts),
+        "executor": executor_since(rolled),
         "seconds_with_backend": round(dt, 3),
         "seconds": round(time.perf_counter() - t_start, 3),
     }), flush=True)

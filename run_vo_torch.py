@@ -26,7 +26,10 @@ Examples:
   python run_vo_torch.py --device cpu --max-frames 12 --capacity 128
 
 Runs on `cuda` unless `--device cpu` is given, and exits 2 without a GPU
-otherwise. `--viz-dir` (cv2) and the PDF figures (matplotlib) exit 2 before
+otherwise. On the card every chunk (every frame at `--chunk 1`) replays the
+step's CUDA graphs, captured once (vo_tpu_torch/models/graphed.py);
+`--no-graph` runs the step eagerly, op by op, with the same results. The
+final JSON line's `executor` names what ran ("graphs" or "eager"). `--viz-dir` (cv2) and the PDF figures (matplotlib) exit 2 before
 the run when their package is missing.
 """
 
@@ -91,6 +94,9 @@ def parse_args(argv=None):
     p.add_argument("--chunk", type=int, default=1,
                    help="frames per `vo_rollout` chunk (1 = per-frame stepping; >1 = "
                         "one fetch per chunk)")
+    p.add_argument("--no-graph", action="store_true",
+                   help="run the step eagerly, op by op, instead of replaying its CUDA "
+                        "graphs (the counterpart of jax.disable_jit)")
     p.add_argument("--no-prefetch", action="store_true",
                    help="decode disk frames in the loop instead of the native "
                         "decode-ahead ring")
@@ -223,7 +229,13 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     from vo_tpu_torch.data import Sequence, synthetic
     from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
     from vo_tpu_torch.models.feature_table import STATE_TRIANGULATED
-    from vo_tpu_torch.models.pipeline import StepOutput, bootstrap, vo_rollout, vo_step
+    from vo_tpu_torch.models.pipeline import (
+        ROLLED,
+        StepOutput,
+        bootstrap,
+        executor_since,
+        vo_rollout,
+    )
     from vo_tpu_torch.utils import viz
     from vo_tpu_torch.utils.checkpoint import load_backend, load_checkpoint, save_checkpoint
     from vo_tpu_torch.utils.config import BAConfig, DetectorConfig, KLTConfig, VOConfig
@@ -385,17 +397,14 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
         return StepOutput(*(f.cpu().numpy() for f in outs))
 
     i = start_frame
+    rolled = dict(ROLLED)
     while i < n_frames:
         n = min(chunk, n_frames - i)
         imgs = frames.take(i, n) if disk else seq.frames[i:i + n]
         t0 = time.time()
-        if chunk > 1:
-            # One `vo_rollout` and one fetch per chunk; the tail chunk is
-            # simply shorter.
-            state, outs = vo_rollout(state, imgs, K, cfg)
-        else:
-            state, out = vo_step(state, imgs[0], K, cfg)
-            outs = StepOutput(*(f[None] for f in out))
+        # One `vo_rollout` and one fetch per chunk (a frame at --chunk 1);
+        # the tail chunk is simply shorter.
+        state, outs = vo_rollout(state, imgs, K, cfg, graph=not args.no_graph)
         outs_np = to_host(outs)  # the copy waits for the device
         dt = time.time() - t0
         if i == first_i:
@@ -442,6 +451,7 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
 
     est = np.stack(poses)
     result = {"fps_steady": fps, "frames": len(stats) + 2,
+              "executor": executor_since(rolled),
               "decoder": seq.decoder if disk else None,
               "prefetch": (dict(ring=frames.native_ring, wait_s=frames.wait_s)
                            if disk else None)}

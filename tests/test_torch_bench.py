@@ -38,6 +38,9 @@ KITTI_K = np.array([[707.0912, 0.0, 601.8873], [0.0, 707.0912, 183.1104], [0.0, 
 KITTI_H, KITTI_W, KITTI_CAPACITY = 370, 1226, 512
 
 
+GRAPH_KEYS = {"executor", "warm_fps", "capture_s"}
+
+
 def _bench_py_keys() -> set:
     """The keys of the JSON line bench.py prints (the dict literal passed to
     json.dumps in its main), read from its source."""
@@ -107,7 +110,10 @@ def test_main_prints_bench_py_keys(small_city, capsys, monkeypatch):
                            "--kitti-root", str(small_city / "absent")])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0
-    assert set(line) == _bench_py_keys() | {"kitti_probe"}
+    # Besides bench.py's keys: what the timed rollout ran, the eager
+    # warm-up's frames/s and the capture's seconds.
+    assert set(line) == _bench_py_keys() | {"kitti_probe"} | GRAPH_KEYS
+    assert line["executor"] == "eager" and line["capture_s"] == 0.0 and line["warm_fps"] > 0
     assert line["kitti05_sized_fps"] is None and line["vs_baseline"] is None
     assert "absent" in line["kitti_probe"] and line["device"] == "cpu"
     assert line["metric"] == "vo_full_sequence_600_frames" and line["unit"] == "frames/s"
@@ -128,7 +134,7 @@ def test_main_prints_bench_py_keys(small_city, capsys, monkeypatch):
     rc = bench_torch.main(["--device", "cpu", "--data-root", str(small_city),
                            "--kitti-root", str(small_city / "kitti_root")])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rc == 0 and set(line) == _bench_py_keys()
+    assert rc == 0 and set(line) == _bench_py_keys() | GRAPH_KEYS
     (fps, runs), = probes
     assert line["kitti05_sized_fps"] == round(fps, 3) > 0
     assert line["vs_baseline"] == round(fps / bench_torch.BASELINE_FPS, 3)

@@ -225,3 +225,34 @@ def test_kernel_wrappers_reject_bad_input(cuda_device):
                                     5, 9, 4, use_kernel=True)
     with pytest.raises(ValueError, match="fit"):
         kernels.extract_patch_pairs(img, img, cor.int(), cor.int(), 5, 49, 4, use_kernel=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracker", ["klt", "harris", "sift"])
+def test_cuda_graphs_equal_the_eager_rollout(cuda_device, tracker):
+    """The captured rollout (models/graphed.py) against the eager one
+    (graph=False) at the headline's frame size: every output, the final
+    state and the launch counts, bit for bit."""
+    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.models import graphed, pipeline
+    from vo_tpu_torch.utils.config import VOConfig
+
+    seq = synthetic.render_sequence(synthetic.DEFAULT_SPEC, cuda_device, 23)
+    cfg = VOConfig(capacity=1024, tracker=tracker)
+    state, _ = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg,
+                                  torch.Generator(device=cuda_device).manual_seed(2023))
+    saved = state.rng.get_state()
+    runs = []
+    for graph in (False, True):
+        state.rng.set_state(saved)
+        kernels.reset_launch_counts()
+        rolled = dict(pipeline.ROLLED)
+        final, outs = pipeline.vo_rollout(state, seq.frames[3:], seq.K, cfg, graph=graph)
+        runs.append((final, outs, dict(kernels.launch_counts),
+                     pipeline.executor_since(rolled)))
+    (final_e, eager, n_eager, ran_e), (final_g, got, n_got, ran_g) = runs
+    assert n_eager == n_got and (ran_e, ran_g) == ("eager", "graphs")
+    for name, a, b in zip(eager._fields, eager, got):
+        assert torch.equal(a, b), name
+    assert all(torch.equal(a, b) for a, b in zip(graphed._leaves(final_e),
+                                                 graphed._leaves(final_g)))

@@ -520,7 +520,9 @@ def test_dataset_lanes_equal_their_single_runs_and_the_reference(city_layout, ca
     mine = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert run_multiseq.main(argv + ["--platform", "cpu"]) is None
     ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(mine) == set(ref) and mine["metric"] == "multiseq_throughput"
+    # The JAX package's keys, and what the rollouts ran (eager on the CPU).
+    assert set(mine) == set(ref) | {"executor"} and mine["metric"] == "multiseq_throughput"
+    assert mine["executor"] == "eager"
     assert mine["batch"] == 2 and mine["ate_rmse_m"] == ates
     for got, want in zip(mine["ate_rmse_m"], ref["ate_rmse_m"]):
         assert abs(got - want) <= 0.05 + 0.5 * want, (mine, ref)
@@ -534,4 +536,5 @@ def test_sweep_prints_the_scaling_table(city_layout, capsys):
     assert rc == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     assert [r["batch"] for r in lines[:2]] == [1, 2] and lines[0]["scaling"] == 1.0
-    assert lines[-1] == {"metric": "multiseq_scaling", "rows": lines[:2]}
+    assert all(r["executor"] == "eager" for r in lines[:2])  # the CPU runs eagerly
+    assert lines[-1] == {"metric": "multiseq_scaling", "rows": lines[:2], "executor": "eager"}

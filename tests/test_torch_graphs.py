@@ -1,0 +1,367 @@
+"""The captured rollout (vo_tpu_torch/models/graphed.py) on the CPU, through
+its stand-in for CUDA graph capture (`graphed.StandIn`: "capture" runs a
+segment once, "replay" runs it again on the same static buffers), at 160x120
+(focal 104), capacity 128, 12 steps of the city:
+
+  * the runner equals the eager `vo_rollout` bit for bit, one lane and
+    three lanes with one of them lost, over recovery and BA frames;
+  * the caller's state is not written; a chunk's outputs are not static
+    buffers (the next chunk leaves them as they were);
+  * a second rollout under the same key captures nothing; launch counts
+    accumulate per replay exactly as the eager path counts them;
+  * the two pieces that make the step capturable: `inverse` (inv_ex) equals
+    torch.linalg.inv bit for bit, and the uniforms drawn ahead (`Drawn`)
+    give the generator's indices and leave it where the eager draw does;
+  * from a JAX state, the runner's frames against the JAX package's jitted
+    `vo_rollout` on replayed draws;
+  * the one step schedule (`pipeline.run_step`) over both host flags; the
+    check of counted launches against a graph's kernel nodes; the executor
+    a rollout reports, from what ran; a runner kept per frame dtype.
+
+The CUDA graphs themselves against the eager rollout are tested on the card
+in tests/test_torch_cuda.py (which imports no jax, so it runs there).
+"""
+
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vo_tpu.models import pipeline as jpipe
+from vo_tpu.utils.config import VOConfig as JaxConfig
+
+from test_torch_pipeline import CAPACITY as DOT_CAPACITY
+from test_torch_pipeline import K_DOTS, _replay, dot_world  # noqa: F401  (fixture)
+from vo_tpu_torch.data import synthetic as tsyn
+from vo_tpu_torch.geom.points import inverse
+from vo_tpu_torch.models import graphed
+from vo_tpu_torch.models import pipeline as tpipe
+from vo_tpu_torch.ops import kernels
+from vo_tpu_torch.ops import klt as tklt
+from vo_tpu_torch.ops.ransac import Drawn, draw_uniforms, sample_indices
+from vo_tpu_torch.parallel import multiseq as tmulti
+from vo_tpu_torch.utils.cache import RunnerCache, runner_key
+from vo_tpu_torch.utils.config import BAConfig, VOConfig
+
+# Several pytest-xdist workers share the cores (see test_torch_frontend.py).
+torch.set_num_threads(1)
+
+SMALL = dict(width=160, height=120, focal=104.0)
+CAPACITY = 128
+FRAMES = 15  # bootstrap on frames 0 and 2, then 12 steps
+CFG = VOConfig(capacity=CAPACITY)
+
+
+@pytest.fixture(scope="module")
+def city():
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, **SMALL)
+    seq = tsyn.render_sequence(spec, "cpu", FRAMES)
+    return seq.frames, seq.K
+
+
+def _boot(frames, K, seed, cfg=CFG):
+    state, _ = tpipe.bootstrap(frames[0], frames[2], K, cfg,
+                               torch.Generator().manual_seed(seed))
+    return state
+
+
+def _gens(state):
+    return list(state.rng) if isinstance(state.rng, list) else [state.rng]
+
+
+def _captured(state, images, K, cfg=CFG, cache=None):
+    """The runner's rollout (a cache of its own unless one is given) and the
+    runner."""
+    cache = RunnerCache() if cache is None else cache
+    out = graphed.graphed_rollout(state, images, K, cfg, cache=cache,
+                                  capture=graphed.StandIn())
+    return out, graphed.runner_for(state, images, K, cfg, cache)
+
+
+def _lanes(frames, K):
+    """Three lanes: two of the city with their own seeds, and one that sees
+    noise after its bootstrap, so that its PnP fails and R runs."""
+    lost = frames.clone()
+    lost[3:] = torch.from_numpy(
+        np.random.default_rng(99).uniform(0, 255, lost[3:].shape).astype(np.float32))
+    states = [_boot(frames, K, 2023), _boot(frames, K, 2024), _boot(lost, K, 2025)]
+    images = torch.stack([frames[3:], frames[3:], lost[3:]], dim=1)
+    return tmulti.stack_states(states), images, K.expand(3, 3, 3).contiguous()
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_runner_equals_the_eager_rollout(city, lanes):
+    """Every StepOutput field, every leaf of the final state and every
+    lane's generator, bit for bit, over frames where R runs and C replays."""
+    frames, K = city
+    if lanes == 1:
+        state, images, Ks = _boot(frames, K, 2023), frames[3:], K
+        eager_roll = tpipe.vo_rollout
+    else:
+        state, images, Ks = _lanes(frames, K)
+        eager_roll = tmulti.batched_vo_rollout
+    saved = [g.get_state() for g in _gens(state)]
+    final_e, eager = eager_roll(state, images, Ks, CFG)
+    after = [g.get_state() for g in _gens(state)]
+    for g, s in zip(_gens(state), saved):
+        g.set_state(s)
+    (final_g, got), runner = _captured(state, images, Ks)
+    for name, a, b in zip(eager._fields, eager, got):
+        assert torch.equal(a, b), name
+    assert len(graphed._leaves(final_e)) == len(graphed._leaves(final_g)) > 20
+    for a, b in zip(graphed._leaves(final_e), graphed._leaves(final_g)):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, g.get_state()) for a, g in zip(after, _gens(state)))
+    assert final_g.rng is state.rng
+    # The run covered both host branches and the eigh boundary each frame.
+    assert runner.stats.recoveries >= 1 and runner.stats.keyframes >= 1
+    assert runner.stats.frames == images.shape[0]
+    assert set(runner.graphs) == {"A", "B1", "B2", "C", "D"}
+    if lanes == 3:  # the noise lane lost every frame; the city lanes did not
+        assert not bool(got.pose_ok[:, 2].any()) and bool(got.pose_ok[:, :2].any(dim=0).all())
+
+
+def test_the_callers_state_is_not_written(city):
+    frames, K = city
+    state = _boot(frames, K, 2023)
+    before = [t.clone() for t in graphed._leaves(state)]
+    (final, _), runner = _captured(state, frames[3:], K)
+    assert all(torch.equal(a, b) for a, b in zip(before, graphed._leaves(state)))
+    # Nothing handed back is a static buffer of the runner.
+    static = {graphed._storage(t) for t in graphed._leaves(runner.state)}
+    assert not static & {graphed._storage(t) for t in graphed._leaves(final)}
+
+
+def test_chunk_outputs_survive_the_next_chunk(city):
+    """Two chunks through one runner: the first chunk's outputs and final
+    state are as they were after the second, and the two chunks together
+    are the eager rollout of all frames."""
+    frames, K = city
+    state = _boot(frames, K, 2023)
+    saved = state.rng.get_state()
+    _, whole = tpipe.vo_rollout(state, frames[3:], K, CFG)
+    state.rng.set_state(saved)
+    cache = RunnerCache()
+    (mid, first), _ = _captured(state, frames[3:9], K, cache=cache)
+    kept = [t.clone() for t in first] + [t.clone() for t in graphed._leaves(mid)]
+    (_, second), _ = _captured(mid, frames[9:], K, cache=cache)
+    now = list(first) + graphed._leaves(mid)
+    assert all(torch.equal(a, b) for a, b in zip(kept, now))
+    for a, b, w in zip(first, second, whole):
+        assert torch.equal(torch.cat([a, b]), w)
+
+
+def test_a_second_rollout_under_the_same_key_captures_nothing(city):
+    frames, K = city
+    cache = RunnerCache()
+    for seed in (2023, 2024):
+        _captured(_boot(frames, K, seed), frames[3:6], K, cache=cache)
+    assert cache.captures == 1 and len(cache) == 1
+    # Another configuration is another key; without BA there is no C.
+    cfg = VOConfig(capacity=CAPACITY, ba=BAConfig(enabled=False))
+    _, runner = _captured(_boot(frames, K, 2023, cfg), frames[3:6], K, cfg, cache)
+    assert cache.captures == 2 and len(cache) == 2
+    assert set(runner.graphs) == {"A", "B1", "B2", "D"} and runner.stats.keyframes == 0
+
+
+def test_launch_counts_accumulate_per_replay(city, monkeypatch):
+    """The wrappers count when Python calls them, which for a graph is at
+    capture. With both wrappers counting as on the card, the captured
+    rollout counts what the eager one does: 1 corner kernel and 4 gather
+    launches a step, nothing for the warm-up or the capture."""
+    frames, K = city
+    real_pairs, real_k1 = tklt.extract_patch_pairs, kernels.corner_response_nms
+
+    def pairs(prev, *a, **kw):
+        kernels.launch_counts["extract_patches"] += 1
+        return real_pairs(prev, *a, **kw)
+
+    def k1(img, *a, **kw):
+        kernels.launch_counts["corner_response_nms"] += 1
+        return real_k1(img, *a, **kw)
+
+    monkeypatch.setattr(tklt, "extract_patch_pairs", pairs)
+    monkeypatch.setattr(kernels, "corner_response_nms", k1)
+    steps = 6
+    counts = []
+    cache = RunnerCache()
+    for run in ("eager", "graphs (capture)", "graphs (cached)"):
+        state = _boot(frames, K, 2023)
+        kernels.reset_launch_counts()
+        if run == "eager":
+            tpipe.vo_rollout(state, frames[3:3 + steps], K, CFG)
+        else:
+            _captured(state, frames[3:3 + steps], K, cache=cache)
+        counts.append(dict(kernels.launch_counts))
+    want = {"corner_response_nms": steps, "extract_patches": 4 * steps,
+            "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+    assert counts == [want] * 3
+    _, runner = _captured(_boot(frames, K, 2023), frames[3:4], K, cache=cache)
+    assert runner.graphs["A"].launches == {"extract_patches": 4}
+    assert runner.graphs["B2"].launches == {"corner_response_nms": 1}
+
+
+@pytest.mark.parametrize("shape", [(3, 3), (1, 3, 3), (6, 3, 3), (5, 4, 4)])
+def test_inverse_is_inv_bit_for_bit(shape):
+    rng = np.random.default_rng(7)
+    M = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+    M = M + 3.0 * torch.eye(shape[-1])
+    assert torch.equal(inverse(M), torch.linalg.inv(M))
+
+
+@pytest.mark.parametrize("valid", [None, "mask"])
+def test_drawn_uniforms_give_the_generators_indices(valid):
+    """`Drawn` over uniforms drawn ahead by `draw_uniforms` gives the indices
+    `sample_indices` draws from the generator, and leaves the generator
+    where that draw leaves it; lane by lane as well."""
+    h, n, s = 256, 128, 4
+    mask = None if valid is None else torch.from_numpy(
+        np.random.default_rng(3).uniform(size=(2, n)) < 0.6)
+    eager = [torch.Generator().manual_seed(11 + b) for b in range(2)]
+    ahead = [torch.Generator().manual_seed(11 + b) for b in range(2)]
+    want = sample_indices(eager, h, n, s, mask)
+    drawn = [Drawn(draw_uniforms(g, h, n)) for g in ahead]
+    got = sample_indices(drawn, h, n, s, mask)
+    assert torch.equal(got, want) and got.shape == (2, h, s)
+    assert all(torch.equal(a.get_state(), b.get_state()) for a, b in zip(eager, ahead))
+    with pytest.raises(ValueError, match="drawn as"):
+        drawn[0](h // 2, n, s)
+
+
+def test_runner_frames_match_the_jax_rollout(dot_world):  # noqa: F811
+    """From the JAX package's bootstrapped state carried across by
+    state_from_numpy, four frames of the runner against the JAX package's
+    jitted `vo_rollout` (a lax.scan) with the JAX draws replayed: poses
+    within 1e-4, lifecycle states, uids and next_uid exact (the tolerances
+    of test_one_step_from_a_jax_state)."""
+    imgs, _ = dot_world
+    n = 4
+    jcfg, K = JaxConfig(capacity=DOT_CAPACITY), jnp.asarray(K_DOTS)
+    jstate, _ = jpipe.bootstrap(jnp.asarray(imgs[0]), jnp.asarray(imgs[2]), K, jcfg,
+                                jax.random.PRNGKey(1))
+    jfinal, want = jpipe.vo_rollout(jstate, jnp.asarray(imgs[3:3 + n]), K, jcfg)
+    assert bool(np.asarray(want.pose_ok).all())  # no recovery draw to replay
+    keys, key = [], jstate.rng
+    for _ in range(n):  # vo_step's split: (next key, PnP's key, recovery's key)
+        key, k_pnp, _ = jax.random.split(key, 3)
+        keys.append(k_pnp)
+    state = tpipe.state_from_numpy(jstate, "cpu", _replay(keys))
+    (final, got), runner = _captured(state, torch.from_numpy(imgs[3:3 + n]),
+                                     torch.from_numpy(K_DOTS), VOConfig(capacity=DOT_CAPACITY))
+    assert runner.stats.keyframes >= 1
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(want.pose), atol=1e-4)
+    np.testing.assert_array_equal(got.pose_ok.numpy(), np.asarray(want.pose_ok))
+    np.testing.assert_array_equal(final.table.state.numpy(), np.asarray(jfinal.table.state))
+    np.testing.assert_array_equal(final.table.uid.numpy(), np.asarray(jfinal.table.uid))
+    assert int(final.next_uid) == int(jfinal.next_uid)
+    assert int(final.last_kf_idx) == int(jfinal.last_kf_idx)
+
+
+def test_a_captured_runner_needs_generators_on_the_card(city):
+    """A replaying sampler runs inside segment A, which only the stand-in
+    runs again: a runner that captures on the card refuses it."""
+    frames, K = city
+    state = _boot(frames, K, 2023)
+    runner = graphed.runner_for(state, frames[3:5], K, CFG, RunnerCache(), graphed.StandIn())
+    runner.capture = type("NoRerun", (graphed.StandIn,), {"reruns_python": False})()
+    with pytest.raises(ValueError, match="torch.Generators"):
+        runner(state._replace(rng=lambda *a: None), frames[3:5], K)
+
+
+@pytest.mark.parametrize("lost,push", [(False, False), (True, False), (False, True),
+                                       (True, True)])
+def test_the_step_schedule(lost, push):
+    """`pipeline.run_step`, the one schedule that `vo_step` and the runner
+    both walk: A, the `lost` flag, R only when a lane is lost, B1, eigh, B2,
+    the `push` flag, C only when a lane pushes, D; each segment gets the
+    results of the ones before it."""
+    calls, reads = [], []
+
+    def seg(name, result):
+        def run(*args):
+            calls.append((name, args))
+            return result
+        return run
+
+    def read(flag, t):
+        reads.append(flag)
+        return t.tolist()
+
+    tracked = SimpleNamespace(pose_ok=torch.tensor([True, not lost]))
+    mapped = SimpleNamespace(push=torch.tensor([False, push]))
+    segments = tpipe.Segments(
+        track=seg("A", tracked), recover=seg("R", "a'"), locate=seg("B1", "g"),
+        eigh=seg("eigh", "v"), map=seg("B2", mapped), keyframe=seg("C", "b'"),
+        finish=seg("D", "out"))
+    assert tpipe.run_step(segments, read, CFG) == "out"
+    a = "a'" if lost else tracked
+    b = "b'" if push else mapped
+    want = [("A", ())] + [("R", (tracked, [False, True]))] * lost + [
+        ("B1", (a,)), ("eigh", ("g",)), ("B2", (a, "g", "v"))] + [
+        ("C", (a, mapped))] * push + [("D", (a, b))]
+    assert calls == want and reads == ["lost", "push"]
+    # Without recovery and BA neither flag is read, and R and C never run.
+    calls.clear()
+    reads.clear()
+    off = VOConfig(capacity=CAPACITY, ba=BAConfig(enabled=False),
+                   recovery=dataclasses.replace(CFG.recovery, enabled=False))
+    tpipe.run_step(segments, read, off)
+    assert [c[0] for c in calls] == ["A", "B1", "eigh", "B2", "D"] and reads == []
+
+
+def test_check_recorded_holds_counts_to_the_graph():
+    """On the card every captured graph's counted launches are held against
+    its kernel nodes, by the kernel's symbol in the node's function name."""
+    names = ["void at::native::vectorized_elementwise_kernel<4>(...)",
+             "_ZN12_GLOBAL__N_117corner_nms_kernelILi7ELi8EEEvPKfPfiiifii",
+             "_ZN12_GLOBAL__N_119patch_gather_kernelENS_9GatherJobES0_iiii"] + [
+             "_ZN12_GLOBAL__N_119patch_gather_kernelENS_9GatherJobES0_iiii"] * 3
+    graphed.check_recorded("A", {"extract_patches": 4, "corner_response_nms": 1}, names)
+    graphed.check_recorded("A", {"extract_patches_batched": 3, "extract_patches": 1,
+                                 "corner_response_nms_batched": 1}, names)
+    with pytest.raises(RuntimeError, match="holds 4 patch_gather_kernel nodes"):
+        graphed.check_recorded("A", {"extract_patches": 5, "corner_response_nms": 1}, names)
+    with pytest.raises(RuntimeError, match="holds 1 corner_nms_kernel"):
+        graphed.check_recorded("B2", {"extract_patches": 4}, names)
+    graphed.check_recorded("D", {}, names[:1])
+
+
+def test_rollouts_report_what_ran(city):
+    """`executor_since` names what the rollouts since a mark ran, from what
+    ran: the eager loop, the runner's replays, both, or nothing."""
+    frames, K = city
+    mark = dict(tpipe.ROLLED)
+    assert tpipe.executor_since(mark) == "none"
+    tpipe.vo_rollout(_boot(frames, K, 2023), frames[3:5], K, CFG)
+    assert tpipe.executor_since(mark) == "eager"
+    graphs = dict(tpipe.ROLLED)
+    _captured(_boot(frames, K, 2023), frames[3:5], K)
+    assert tpipe.executor_since(graphs) == "graphs"
+    assert tpipe.executor_since(mark) == "mixed"
+    assert tpipe.ROLLED["graphs"] - graphs["graphs"] == 2
+
+
+def test_a_runner_is_kept_per_frame_dtype(city):
+    """The frame's dtype is part of the key, and a runner refuses frames of
+    another dtype instead of casting them into its static frame."""
+    frames, K = city
+    key = [runner_key(CFG, 1, 120, 160, dtype, "cpu") for dtype in (torch.float32,
+                                                                     torch.float64)]
+    assert key[0] != key[1]
+    _, runner = _captured(_boot(frames, K, 2023), frames[3:5], K)
+    with pytest.raises(ValueError, match="torch.float64"):
+        runner(_boot(frames, K, 2023), frames[3:5].double(), K)
+
+
+def test_batched_rollout_checks_its_shapes(city):
+    frames, K = city
+    states, images, Ks = _lanes(frames, K)
+    with pytest.raises(ValueError, match="3 lanes need images"):
+        tmulti.batched_vo_rollout(states, images[:, :2], Ks, CFG)
+    with pytest.raises(ValueError, match="3 lanes need images"):
+        tmulti.batched_vo_rollout(states, images, Ks[:2], CFG)

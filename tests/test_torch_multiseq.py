@@ -872,7 +872,8 @@ def test_run_multiseq_torch_on_cpu_small(monkeypatch, capsys):
     assert rc == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     report = lines[-1]
-    assert set(report) == {"metric", "lanes", "batch", "steps", "agg_fps", "device"}
+    assert set(report) == {"metric", "lanes", "batch", "steps", "agg_fps", "executor", "device"}
+    assert report["executor"] == "eager"  # the CPU runs eagerly
     assert report["metric"] == "multiseq_full" and report["batch"] == 2
     assert report["steps"] == 5 and report["device"] == "cpu" and report["agg_fps"] > 0
     assert [lane["lane"] for lane in report["lanes"]] == ["city_lr", "city_rl", "distorted"]

@@ -249,7 +249,9 @@ def test_flags_follow_run_vo():
     ours, theirs = vars(run_vo_torch.parse_args([])), vars(run_vo.parse_args([]))
     renamed = {"platform", "no_pallas"}  # --device, --no-kernels
     assert set(theirs) - set(ours) == renamed
-    assert set(ours) - set(theirs) == {"device", "no_kernels", "spec"}
+    # --no-graph: the port's counterpart of jax.disable_jit (run_vo.py has
+    # no flag for it).
+    assert set(ours) - set(theirs) == {"device", "no_kernels", "spec", "no_graph"}
     for name in set(ours) & set(theirs) - {"dataset"}:
         assert ours[name] == theirs[name], name
     assert ours["device"] == "cuda" and ours["dataset"] == "synthetic"

@@ -201,8 +201,10 @@ def main(argv=None) -> int:
     if dev is None:
         return 2
     configs = trials(args.min_baseline_ratio, args.min_covisibility, args.max_gap)
+    # The policies are compared step by step (`roll` reads each step's
+    # keyframe index), so the step runs eagerly.
     line = {"tool": "ablate_keyframes_torch", "device": bench_torch.card_name(dev),
-            "capacity": CAPACITY}
+            "capacity": CAPACITY, "executor": "eager"}
     if args.scenario in ("stopgo", "both"):
         print(f"[stopgo] {args.frames} frames, two 45-frame stops, two 90-deg turns")
         line["stopgo"] = dict(frames=args.frames,

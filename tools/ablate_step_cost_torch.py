@@ -86,7 +86,7 @@ def ablate(imgs, K, dev, steps: int = STEPS, repeats: int = REPEATS, reverse: bo
         return dict(fps=n / runs.seconds, ms_a_frame=ms, delta_ms=delta, steps=n,
                     pose_ok=int(runs.timed.pose_ok.sum()),
                     finite=int(torch.isfinite(runs.timed.pose).all(dim=(1, 2)).sum()),
-                    frozen=int(runs.timed.frozen.sum()),
+                    frozen=int(runs.timed.frozen.sum()), executor=runs.executor,
                     k1=launches["corner_response_nms"], k2=launches["extract_patches"])
 
     table = variants(VOConfig(capacity=CAPACITY))

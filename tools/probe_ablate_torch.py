@@ -94,6 +94,7 @@ def probe(frames, K, dev, steps: int = STEPS, repeats: int = REPEATS) -> list:
             finite=int(torch.isfinite(timed.pose).all(dim=(1, 2)).sum()),
             frozen=int(timed.frozen.sum()) + int(runs.warm.frozen.sum()),
             steps=int(timed.pose.shape[0]),
+            executor=runs.executor,
             k1=launches["corner_response_nms"],
             k2=launches["extract_patches"],
         )

@@ -189,6 +189,7 @@ def profile(frames, K, dev, reps: int = 3) -> list[dict]:
     for label, c in (("ba off", cfg_noba), ("ba on", cfg)):
         runs = bench_torch.warm_and_timed(state, stack, K, c)
         row = {"name": f"rollout {ROLLOUT_STEPS}f ({label})",
+               "executor": runs.executor,
                "host_ms": 1e3 * runs.seconds / ROLLOUT_STEPS,
                "fps": ROLLOUT_STEPS / runs.seconds, "device_ms": None, "kernels": None,
                "device_idle_share": None}

@@ -96,6 +96,7 @@ def main(argv=None) -> int:
     out = {
         "card": card,
         "lanes": len(names), "steps": args.steps,
+        "executor": "eager",  # batched_vo_step, traced step by step
         "step_ms": plain_ms / args.steps,
         "profiled_step_ms": wall_ms / args.steps,
         "device_ms_per_step": device_ms / args.steps,

@@ -5,7 +5,8 @@ the twin of the JAX package's tools/repro_headline.py.
 Runs bench_torch.py's headline program (the city under
 <data-root>/synthetic, capacity 1024, bootstrap on frames 0 and 2 with seed
 2023, one `vo_rollout` over the rest, timed on the host clock with one
-synchronize at the end) with the LK patch-gather kernel (K2) on and off, and
+synchronize at the end; on the card it replays the step's CUDA graphs,
+captured before the clock starts) with the LK patch-gather kernel (K2) on and off, and
 with `--also-detect` the corner kernel (K1) off too, through the
 `use_pallas` fields the port keeps for its CUDA kernels (None: the kernel on
 a CUDA tensor; False: the plain PyTorch version), as `run_vo_torch.py
@@ -61,7 +62,8 @@ def repro(imgs, K, gt_poses, dev, also_detect: bool = True) -> list:
     """One row a variant (see the module's docstring)."""
     import torch
 
-    from vo_tpu_torch.models.pipeline import bootstrap, vo_rollout
+    from vo_tpu_torch.models.graphed import capture_ahead
+    from vo_tpu_torch.models.pipeline import ROLLED, bootstrap, executor_since, vo_rollout
     from vo_tpu_torch.utils.config import VOConfig
 
     stack = imgs[3:]
@@ -71,12 +73,14 @@ def repro(imgs, K, gt_poses, dev, also_detect: bool = True) -> list:
     def measure(name, cfg):
         def run():
             state, out = bootstrap(imgs[0], imgs[2], K, cfg, bench_torch.seeded(dev))
+            capture_ahead(state, stack, K, cfg)  # outside the clock
             bench_torch.sync(dev)
             t0 = time.perf_counter()
             _, outs = vo_rollout(state, stack, K, cfg)
             bench_torch.sync(dev)
             return out, outs, time.perf_counter() - t0
 
+        rolled = dict(ROLLED)
         (out, outs, dt), launches = common_torch.counting_launches(run)
         boot = out.pose.cpu().numpy()
         est = bench_torch.step_poses(boot, outs)
@@ -85,6 +89,7 @@ def repro(imgs, K, gt_poses, dev, also_detect: bool = True) -> list:
             default.append(est)
         res = {
             "fps": round(steps / dt, 2),
+            "executor": executor_since(rolled),
             "ate_rmse_m": round(ate, 4),
             "rpe_trans_m": round(t_rpe, 5),
             "rpe_rot_deg": round(r_rpe * 57.29578, 5),

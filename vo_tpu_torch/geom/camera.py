@@ -13,7 +13,7 @@ from typing import NamedTuple
 import torch
 
 from vo_tpu_torch.geom.lie import pose_inverse
-from vo_tpu_torch.geom.points import bmat, to_cartesian, to_homogeneous
+from vo_tpu_torch.geom.points import bmat, inverse, to_cartesian, to_homogeneous
 
 
 class Camera(NamedTuple):
@@ -49,7 +49,7 @@ class Camera(NamedTuple):
 
     def normalized_coords(self, pixels: torch.Tensor) -> torch.Tensor:
         h = to_homogeneous(pixels)
-        return to_cartesian((bmat(torch.linalg.inv(self.K), h) @ h[..., None])[..., 0])
+        return to_cartesian((bmat(inverse(self.K), h) @ h[..., None])[..., 0])
 
     def distort_points(self, pixels: torch.Tensor) -> torch.Tensor:
         """Apply the radial-tangential distortion to ideal pixels (..., 2)."""

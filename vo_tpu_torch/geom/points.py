@@ -27,6 +27,22 @@ def bmat(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return lift(M, x.ndim + 1)
 
 
+def inverse(M: torch.Tensor) -> torch.Tensor:
+    """torch.linalg.inv without its error check: the same LU and the same
+    bits (`inv_ex`), but no host sync reading the check, so a CUDA graph can
+    hold it. A singular matrix gives non-finite entries instead of raising."""
+    return torch.linalg.inv_ex(M).inverse
+
+
+def device_vector(values, device) -> torch.Tensor:
+    """An f32 vector of Python numbers, written on `device` by fills.
+    `torch.tensor(values, device=...)` copies from pageable host memory and
+    waits for the copy, which a CUDA graph cannot hold; the values are the
+    same f32 roundings."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device)
+                        for v in values])
+
+
 def to_homogeneous(points: torch.Tensor) -> torch.Tensor:
     """Append a 1 to the last axis: (..., D) -> (..., D+1)."""
     return torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)

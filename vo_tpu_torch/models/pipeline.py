@@ -6,7 +6,13 @@ harris, sift: frame-to-frame descriptor matching).
 of its tensors. The reference's two `lax.cond`s (visual recovery when PnP
 fails, keyframe push + BA) are host `if`s on a synchronized flag here;
 everything else is static-shape masked tensor work, as in the reference.
-`vo_rollout` is a Python loop over `vo_step` that stacks the StepOutputs.
+The step is written as segments split at those flags and at the one op a
+CUDA graph cannot hold (the DLT's eigh): `step_track` (A), `step_recover`
+(R), `step_locate` (B1), `step_eigh`, `step_map` (B2), `step_keyframe` (C),
+`step_finish` (D); `vo_step` composes them. `vo_rollout` on a CUDA state
+replays A, B1, B2, C and D as CUDA graphs (models/graphed.py), the
+counterpart of the reference's jit-compiled scan; elsewhere, or with
+`graph=False`, it is a Python loop over `vo_step`.
 
 Lanes: `vo_step` also takes a BATCHED state — every leaf with a leading lane
 axis (B, ...), images (B, H, W), K (B, 3, 3) — and steps B independent
@@ -28,14 +34,14 @@ to its neighbours.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, NamedTuple
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
 
 from vo_tpu_torch.geom.camera import Camera
 from vo_tpu_torch.geom.lie import pose_inverse
-from vo_tpu_torch.geom.points import bmat, lift
+from vo_tpu_torch.geom.points import bmat, device_vector, inverse, lift
 from vo_tpu_torch.models.ba import (
     BAWindow,
     ba_refine,
@@ -64,7 +70,8 @@ from vo_tpu_torch.ops.image import build_pyramid
 from vo_tpu_torch.ops.klt import TrackResult, pyramidal_lk
 from vo_tpu_torch.ops.pnp import pnp_ransac
 from vo_tpu_torch.ops.ransac import IDLE, Samplers, is_lane_samplers, where_lane
-from vo_tpu_torch.ops.triangulate import reprojection_error, triangulate_dlt
+from vo_tpu_torch.ops.linalg import eigh_finite
+from vo_tpu_torch.ops.triangulate import dlt_points, dlt_system, reprojection_error
 from vo_tpu_torch.utils.config import VOConfig
 
 
@@ -248,13 +255,18 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                 dim=idx.ndim - 1)
 
 
+def _camera(K: torch.Tensor, cfg: VOConfig) -> Camera:
+    """The configured lens around K (its coefficients written on K's device
+    without a host copy)."""
+    return Camera.create(K, dist=device_vector(cfg.dist, K.device))
+
+
 def _undistort(xy: torch.Tensor, K: torch.Tensor, cfg: VOConfig) -> torch.Tensor:
     """Ideal-pinhole coordinates of raw observations (identity without
     distortion)."""
     if not any(cfg.dist):
         return xy
-    return Camera.create(K, dist=torch.tensor(cfg.dist, dtype=torch.float32,
-                                              device=K.device)).undistort_points(xy)
+    return _camera(K, cfg).undistort_points(xy)
 
 
 def _rays_world(pose: torch.Tensor, Kinv: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
@@ -393,15 +405,43 @@ def bootstrap(
 # ---------------------------------------------------------------------------
 
 def vo_rollout(
-    state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VOConfig
+    state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VOConfig,
+    graph: bool = True,
 ) -> tuple[VOState, StepOutput]:
     """Run `vo_step` over a stacked (N, H, W) frame chunk; returns the final
-    state and the per-frame StepOutputs stacked along a leading axis."""
+    state and the per-frame StepOutputs stacked along a leading axis.
+
+    On a CUDA state the step's segments replay as CUDA graphs, captured once
+    per configuration and shape and kept for the process
+    (models/graphed.py, utils/cache.py): the counterpart of the reference's
+    jit-compiled `lax.scan`. The results are the eager loop's bit for bit; a
+    capture or replay that fails raises. `graph=False` runs the eager loop
+    (the counterpart of `jax.disable_jit`), as the CPU always does. The
+    caller's state is never written."""
+    if graph and images.is_cuda:
+        from vo_tpu_torch.models.graphed import graphed_rollout
+
+        return graphed_rollout(state, images, K, cfg)
     outs = []
     for img in images:
         state, out = vo_step(state, img, K, cfg)
         outs.append(out)
+    ROLLED["eager"] += len(outs)
     return state, StepOutput(*(torch.stack(f) for f in zip(*outs)))
+
+
+# Frames that rollouts of this process ran, by what ran them: "graphs" (the
+# captured step's replays, counted by the runner in models/graphed.py) or
+# "eager" (the loop over `vo_step` above).
+ROLLED = {"graphs": 0, "eager": 0}
+
+
+def executor_since(before: dict) -> str:
+    """What the rollouts since `before = dict(ROLLED)` ran: "graphs",
+    "eager", "mixed" (both), or "none" (no frame). The name every JSON line
+    of a rollout carries."""
+    ran = [name for name, n in ROLLED.items() if n > before[name]]
+    return ran[0] if len(ran) == 1 else "mixed" if ran else "none"
 
 
 def _depth(T_cw: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -418,6 +458,10 @@ def _mat_points(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 def vo_step(
     state: VOState, image: torch.Tensor, K: torch.Tensor, cfg: VOConfig
 ) -> tuple[VOState, StepOutput]:
+    """One frame: the segments below in order, split where the host decides
+    or must read the device. A -> flag `lost` -> R -> B (B1 -> the DLT's
+    eigh -> B2) -> flag `push` -> C -> D. The captured rollout replays A,
+    B1, B2, C and D as CUDA graphs and runs the rest between them."""
     _check_tracker(cfg)
     if not is_lane_samplers(state.rng):
         # One sequence is a batch of one lane: the same kernels and the same
@@ -431,9 +475,106 @@ def vo_step(
         raise ValueError(
             f"a state of {len(state.rng)} lanes needs images (B, H, W), got "
             f"{tuple(image.shape)}")
-    tcfg = cfg.triangulation
+    eager = Segments(
+        track=lambda: step_track(state, image, K, cfg),
+        recover=lambda a, lost: a._replace(pose_fb=step_recover(state, a, K, cfg, lost)),
+        locate=lambda a: step_locate(state, a, K, cfg),
+        eigh=step_eigh,
+        map=lambda a, g, vecs: step_map(state, a, g, vecs, image, cfg),
+        keyframe=lambda a, b: step_keyframe(a, b, K, cfg),
+        finish=lambda a, b: step_finish(state, a, b),
+    )
+    return run_step(eager, lambda flag, t: t.tolist(), cfg)
+
+
+class Segments(NamedTuple):
+    """One frame's segments as callables over the results of the earlier
+    ones: `vo_step` calls the step_* functions; the captured rollout
+    (models/graphed.py) replays graphs that write static buffers."""
+
+    track: Callable[[], Any]  # A -> Tracked
+    recover: Callable[[Any, list], Any]  # R (a, lost) -> Tracked
+    locate: Callable[[Any], Any]  # B1 (a) -> Located
+    eigh: Callable[[Any], Any]  # (g) -> the DLT's eigenvectors
+    map: Callable[[Any, Any, Any], Any]  # B2 (a, g, vecs) -> Mapped
+    keyframe: Callable[[Any, Any], Any]  # C (a, b) -> Mapped
+    finish: Callable[[Any, Any], Any]  # D (a, b) -> the step's result
+
+
+def run_step(seg: Segments, read: Callable[[str, torch.Tensor], list], cfg: VOConfig):
+    """The step's schedule, the one place it is written: A, the flag `lost`
+    (when recovery is on) and R if a lane is lost, B1, eigh, B2, the flag
+    `push` (when BA is on) and C if a lane pushes, D. `read(flag, t)`
+    brings the lanes' flag `t` to the host as a list."""
+    a = seg.track()
+    if cfg.recovery.enabled:
+        lost = [not ok for ok in read("lost", a.pose_ok)]
+        if any(lost):
+            a = seg.recover(a, lost)
+    g = seg.locate(a)
+    b = seg.map(a, g, seg.eigh(g))
+    if cfg.ba.enabled and any(read("push", b.push)):
+        b = seg.keyframe(a, b)
+    return seg.finish(a, b)
+
+
+class Tracked(NamedTuple):
+    """Segment A's results (every field with the lane axis)."""
+
+    Kinv: torch.Tensor  # (B, 3, 3)
+    table: FeatureTable  # after tracking: xy, state, miss (desc, sigma when matching)
+    tracked: torch.Tensor  # (B, K) occupied and observed this frame: feeds geometry
+    xy_u: torch.Tensor  # (B, K, 2) ideal-pinhole positions
+    track_xy_u: torch.Tensor  # (B, K, 2) ideal-pinhole track starts
+    tri: torch.Tensor  # (B, K) triangulated and observed: PnP's input
+    pnp: Any  # PnPResult
+    pose_ok: torch.Tensor  # (B,) PnP accepted
+    pose_pnp: torch.Tensor  # (B, 4, 4) w_T_c from PnP
+    pose_fb: torch.Tensor  # (B, 4, 4) fallback: constant velocity; R replaces lost lanes'
+    pyramid: tuple  # this frame's pyramid (klt) or (image,)
+    det: Detections | None  # this frame's detections (harris, sift; klt: None)
+    used: torch.Tensor | None  # (B, C) detections consumed by matching
+
+
+class Located(NamedTuple):
+    """Segment B1's results: the frame's pose and the DLT systems of every
+    slot, before the eigh."""
+
+    table: FeatureTable  # after the outlier reset and the cheirality cull
+    pose: torch.Tensor  # (B, 4, 4)
+    pose_ok: torch.Tensor  # (B,)
+    frozen: torch.Tensor  # (B,) every pose tier non-finite
+    pose_flat: torch.Tensor  # (B, 16)
+    T_cw: torch.Tensor  # (B, 4, 4)
+    candidates: torch.Tensor  # (B, K) bearing-gated triangulation candidates
+    P_start: torch.Tensor  # (B, K, 3, 4)
+    P_now: torch.Tensor  # (B, 3, 4)
+    system: torch.Tensor  # (B, K, 4, 4) A^T A of the DLT
+
+
+class Mapped(NamedTuple):
+    """Segment B2's results, which C rewrites on the lanes that push."""
+
+    table: FeatureTable
+    pose: torch.Tensor
+    pose_ok: torch.Tensor
+    frozen: torch.Tensor
+    candidates: torch.Tensor
+    good_new: torch.Tensor  # (B, K) newly triangulated
+    next_uid: torch.Tensor  # (B,)
+    window: BAWindow
+    last_kf_idx: torch.Tensor  # (B,)
+    push: torch.Tensor | None  # (B,) keyframe push (None without BA)
+    new_frame_idx: torch.Tensor  # (B,)
+
+
+def step_track(state: VOState, image: torch.Tensor, K: torch.Tensor,
+               cfg: VOConfig) -> Tracked:
+    """Segment A: the front end (tracking every occupied slot), PnP and the
+    constant-velocity fallback. Its one random draw is PnP's, from
+    `state.rng`."""
     table = state.table
-    Kinv = torch.linalg.inv(K)
+    Kinv = inverse(K)
 
     # ---- 1. Track every occupied slot with the configured front-end ----
     # klt: pyramidal LK; harris/sift: frame-to-frame descriptor matching.
@@ -461,9 +602,7 @@ def vo_step(
             use_full = (table.state == STATE_TRIANGULATED) & (Xc[..., 2] > 0.2)
             guess = torch.where(use_full[..., None], uv_full, uv_rot)
             if any(cfg.dist):
-                cam = Camera.create(K, dist=torch.tensor(cfg.dist, dtype=torch.float32,
-                                                         device=K.device))
-                guess = cam.distort_points(guess)
+                guess = _camera(K, cfg).distort_points(guess)
             init_flow = guess - table.xy
         tr = _lk(state.pyramid, pyr_new, table.xy, cfg, init_flow)
         det = None
@@ -523,39 +662,49 @@ def vo_step(
     rel_pinned = rel_cv.clone()
     rel_pinned[..., :3, 3] = torch.where(n_cv > 1e-12, t_pin, t_cv)
     pose_cv = state.pose @ rel_pinned
-    pose_fb = pose_cv
-    lost = (~pose_ok).reshape(-1).tolist() if cfg.recovery.enabled else [False]
-    if any(lost):
-        # Fallback tier 2: visual relative pose from this frame's 2D-2D
-        # tracks (8-point RANSAC -> E -> cheirality), scale pinned as above.
-        # It runs for all lanes when any lane lost its pose; only a lost
-        # lane draws from its sampler and only a lost lane takes the result.
-        rng = [r if lost_b else IDLE for r, lost_b in zip(state.rng, lost)]
-        prev_xy_u = _undistort(state.table.xy, K, cfg)
-        res = fundamental_ransac(
-            rng, prev_xy_u, xy_u, valid=tracked,
-            inlier_threshold_px=cfg.recovery.inlier_threshold_px,
-            num_hypotheses=cfg.recovery.num_hypotheses,
-        )
-        E = essential_from_fundamental(res.model, K, K)
-        rp = relative_pose_from_essential(E, prev_xy_u, xy_u, K, K, weight=res.inliers)
-        T21 = rp.T_21.clone()
-        T21[..., :3, 3] = rp.T_21[..., :3, 3] * state.last_speed[..., None]
-        pose_vis = state.pose @ pose_inverse(T21)
-        ok = (res.num_inliers >= cfg.recovery.min_inliers) & _all_finite(pose_vis)
-        pose_fb = where_lane(ok & ~pose_ok, pose_vis, pose_cv)
-    pose = where_lane(pose_ok, pose_pnp, pose_fb)
+    return Tracked(Kinv, table, tracked, xy_u, track_xy_u, tri, pnp, pose_ok, pose_pnp,
+                   pose_cv, pyr_new, det, used)
+
+
+def step_recover(state: VOState, a: Tracked, K: torch.Tensor, cfg: VOConfig,
+                 lost: list) -> torch.Tensor:
+    """Segment R, run only when a lane lost its pose: fallback tier 2, the
+    visual relative pose from this frame's 2D-2D tracks (8-point RANSAC ->
+    E -> cheirality), scale pinned as the constant-velocity tier. It runs
+    for all lanes; only a lost lane draws from its sampler and takes the
+    result. Returns the new fallback pose."""
+    rng = [r if lost_b else IDLE for r, lost_b in zip(state.rng, lost)]
+    prev_xy_u = _undistort(state.table.xy, K, cfg)
+    res = fundamental_ransac(
+        rng, prev_xy_u, a.xy_u, valid=a.tracked,
+        inlier_threshold_px=cfg.recovery.inlier_threshold_px,
+        num_hypotheses=cfg.recovery.num_hypotheses,
+    )
+    E = essential_from_fundamental(res.model, K, K)
+    rp = relative_pose_from_essential(E, prev_xy_u, a.xy_u, K, K, weight=res.inliers)
+    T21 = rp.T_21.clone()
+    T21[..., :3, 3] = rp.T_21[..., :3, 3] * state.last_speed[..., None]
+    pose_vis = state.pose @ pose_inverse(T21)
+    ok = (res.num_inliers >= cfg.recovery.min_inliers) & _all_finite(pose_vis)
+    return where_lane(ok & ~a.pose_ok, pose_vis, a.pose_fb)
+
+
+def step_locate(state: VOState, a: Tracked, K: torch.Tensor, cfg: VOConfig) -> Located:
+    """Segment B1: pose selection and the fail-safe, the outlier reset, the
+    cheirality cull, the bearing gate, and the DLT systems of the slots."""
+    tcfg = cfg.triangulation
+    pose = where_lane(a.pose_ok, a.pose_pnp, a.pose_fb)
     # Last-resort fail-safe: hold the previous pose if every tier is
     # non-finite.
     pose_finite = _all_finite(pose)
     frozen = ~pose_finite
     pose = where_lane(pose_finite, pose, state.pose)
-    pose_ok = pose_ok & pose_finite
+    pose_ok = a.pose_ok & pose_finite
     pose_flat = pose.reshape(pose.shape[:-2] + (16,))
     T_cw = pose_inverse(pose)
 
     # ---- 3. Outlier reset (state.py:162-172) ----
-    table = restart_tracks(table, tri & ~pnp.inliers & pose_ok[..., None], pose_flat)
+    table = restart_tracks(a.table, a.tri & ~a.pnp.inliers & pose_ok[..., None], pose_flat)
 
     # ---- 4. Cheirality cull of surviving landmarks (state.py:90-107) ----
     tri = table.state == STATE_TRIANGULATED
@@ -565,35 +714,53 @@ def vo_step(
     table = restart_tracks(table, behind, pose_flat)
 
     # ---- 5. Bearing-angle candidate gate (state.py:135-160) ----
-    cand_mask = (table.state == STATE_MATCHED) & fresh
+    cand_mask = (table.state == STATE_MATCHED) & a.tracked
     track_pose = table.track_pose.reshape(table.track_pose.shape[:-1] + (4, 4))
-    ray_start = _rays_world(track_pose, Kinv, track_xy_u)
-    ray_now = _rays_world(pose, Kinv, xy_u)
+    ray_start = _rays_world(track_pose, a.Kinv, a.track_xy_u)
+    ray_now = _rays_world(pose, a.Kinv, a.xy_u)
     angle = torch.arccos(torch.clamp((ray_start * ray_now).sum(-1), -1.0, 1.0))
     candidates = cand_mask & (angle >= tcfg.bearing_threshold)
 
-    # ---- 6. Triangulate candidates (triangulation.py:38-86) ----
+    # ---- 6. Triangulate candidates (triangulation.py:38-86), up to the eigh ----
     P_start = _proj_matrix(track_pose, K)  # (..., K, 3, 4) per-track-start
     P_now = _proj_matrix(pose, K)  # (..., 3, 4)
-    X = triangulate_dlt(P_start, P_now, track_xy_u, xy_u)
+    system = dlt_system(P_start, P_now, a.track_xy_u, a.xy_u)
+    return Located(table, pose, pose_ok, frozen, pose_flat, T_cw, candidates,
+                   P_start, P_now, system)
+
+
+def step_eigh(g: Located) -> torch.Tensor:
+    """The boundary between B1 and B2: the DLT's eigenvectors. eigh reads its
+    error flag on the host, so it runs eagerly between two graphs."""
+    return eigh_finite(g.system)[1]
+
+
+def step_map(state: VOState, a: Tracked, g: Located, vecs: torch.Tensor,
+             image: torch.Tensor, cfg: VOConfig) -> Mapped:
+    """Segment B2: the triangulated candidates, top-up detection into free
+    slots, and the keyframe decision."""
+    tcfg = cfg.triangulation
+    X = dlt_points(vecs)
+    track_pose = g.table.track_pose.reshape(g.table.track_pose.shape[:-1] + (4, 4))
     T_start = pose_inverse(track_pose)
     z_start = (T_start[..., 2, :3] * X).sum(-1) + T_start[..., 2, 3]
-    z_new = _depth(T_cw, X)
+    z_new = _depth(g.T_cw, X)
     good_new = (
-        candidates
+        g.candidates
         & torch.isfinite(X).all(-1)
         & (z_start > tcfg.min_depth)
         & (z_new > tcfg.min_depth)
         & (z_new < tcfg.max_depth)
-        & (reprojection_error(P_now, X, xy_u) < tcfg.max_reproj_px)
-        & (reprojection_error(P_start, X, track_xy_u) < tcfg.max_reproj_px)
+        & (reprojection_error(g.P_now, X, a.xy_u) < tcfg.max_reproj_px)
+        & (reprojection_error(g.P_start, X, a.track_xy_u) < tcfg.max_reproj_px)
     )
-    table = table._replace(
-        landmark=torch.where(good_new[..., None], X, table.landmark),
-        state=torch.where(good_new, STATE_TRIANGULATED, table.state).to(torch.int32),
+    table = g.table._replace(
+        landmark=torch.where(good_new[..., None], X, g.table.landmark),
+        state=torch.where(good_new, STATE_TRIANGULATED, g.table.state).to(torch.int32),
     )
 
     # ---- 7. Top-up detection into free slots (klt.py:98-116, 206-230) ----
+    det = a.det
     if det is None:
         det = _detect_mode(image, cfg)
     live = table.state >= STATE_UNMATCHED
@@ -601,82 +768,94 @@ def vo_step(
     d2 = torch.where(live[..., None, :], d2, float("inf"))
     far = d2.min(dim=-1).values > cfg.detector.min_dist_to_live**2
     det_ok = det.valid & far
-    if used is not None:
-        det_ok = det_ok & ~used
+    if a.used is not None:
+        det_ok = det_ok & ~a.used
     table, next_uid = fill_free_slots(
-        table, det.xy, det.score, det_ok, pose_flat, state.next_uid,
+        table, det.xy, det.score, det_ok, g.pose_flat, state.next_uid,
         det_desc=det.desc, det_sigma=det.sigma,
     )
 
-    # ---- 8. Keyframe push + windowed BA ----
+    # ---- 8. Keyframe decision (the push and BA are segment C) ----
     new_frame_idx = (state.frame_idx + 1).to(torch.int32)
     window = state.window
-    last_kf_idx = state.last_kf_idx
+    push = None
     if cfg.ba.enabled:
         # A fallback frame invalidates the window (its keyframes predate the
         # recovery): clear it; pushes resume on recovery.
         window = where_window(
-            pose_ok, window, empty_window(cfg.ba.window, cfg.capacity, device=K.device)
+            g.pose_ok, window, empty_window(cfg.ba.window, cfg.capacity, device=image.device)
         )
         want_kf = torch.where(
             state.kf_adaptive,
-            _want_adaptive(window, table, pose, T_cw, new_frame_idx - state.last_kf_idx, cfg),
+            _want_adaptive(window, table, g.pose, g.T_cw, new_frame_idx - state.last_kf_idx,
+                           cfg),
             new_frame_idx % cfg.ba.keyframe_every == 0,
         )
-        push = want_kf & pose_ok
-        if bool(push.any()):
-            # The push (and BA) runs for all lanes when any lane pushes;
-            # each lane keeps it only under its own predicate.
-            pushed = push_keyframe(
-                window, pose, xy_u, table.landmark, table.uid,
-                (table.state == STATE_TRIANGULATED) & fresh,
-            )
-            landmark = table.landmark
-            if cfg.ba.refine_in_step:
-                pushed, _ = ba_refine(
-                    pushed, K, iters=cfg.ba.iters,
-                    damping=cfg.ba.damping, huber_px=cfg.ba.huber_px,
-                )
-                match = (
-                    (pushed.lm_uid == table.uid)
-                    & pushed.lm_valid
-                    & (table.state == STATE_TRIANGULATED)
-                    & push[..., None]
-                )
-                landmark = torch.where(match[..., None], pushed.landmark, table.landmark)
-            table = table._replace(landmark=landmark)
-            window = where_window(push, pushed, window)
-            kf_pose = pushed.kf_pose[..., -1, :].reshape(pose.shape)
-            pose = where_lane(push, kf_pose, pose)
-            last_kf_idx = torch.where(push, new_frame_idx, last_kf_idx)
+        push = want_kf & g.pose_ok
+    return Mapped(table, g.pose, g.pose_ok, g.frozen, g.candidates, good_new, next_uid,
+                  window, state.last_kf_idx, push, new_frame_idx)
 
+
+def step_keyframe(a: Tracked, b: Mapped, K: torch.Tensor, cfg: VOConfig) -> Mapped:
+    """Segment C, run only when a lane pushes: the keyframe push and the
+    windowed BA. They run for all lanes when any lane pushes; each lane
+    keeps them only under its own predicate."""
+    table = b.table
+    pushed = push_keyframe(
+        b.window, b.pose, a.xy_u, table.landmark, table.uid,
+        (table.state == STATE_TRIANGULATED) & a.tracked,
+    )
+    landmark = table.landmark
+    if cfg.ba.refine_in_step:
+        pushed, _ = ba_refine(
+            pushed, K, iters=cfg.ba.iters,
+            damping=cfg.ba.damping, huber_px=cfg.ba.huber_px,
+        )
+        match = (
+            (pushed.lm_uid == table.uid)
+            & pushed.lm_valid
+            & (table.state == STATE_TRIANGULATED)
+            & b.push[..., None]
+        )
+        landmark = torch.where(match[..., None], pushed.landmark, table.landmark)
+    kf_pose = pushed.kf_pose[..., -1, :].reshape(b.pose.shape)
+    return b._replace(
+        table=table._replace(landmark=landmark),
+        window=where_window(b.push, pushed, b.window),
+        pose=where_lane(b.push, kf_pose, b.pose),
+        last_kf_idx=torch.where(b.push, b.new_frame_idx, b.last_kf_idx),
+    )
+
+
+def step_finish(state: VOState, a: Tracked, b: Mapped) -> tuple[VOState, StepOutput]:
+    """Segment D: the validated speed, the new state and the StepOutput."""
     # Validated speed for the next step's fallback pinning.
     speed_now = torch.linalg.vector_norm(
-        (pose_inverse(state.pose) @ pose)[..., :3, 3], dim=-1)
-    last_speed = torch.where(pose_ok & torch.isfinite(speed_now), speed_now, state.last_speed)
-
+        (pose_inverse(state.pose) @ b.pose)[..., :3, 3], dim=-1)
+    last_speed = torch.where(b.pose_ok & torch.isfinite(speed_now), speed_now,
+                             state.last_speed)
     new_state = VOState(
-        table=table,
-        pose=pose,
+        table=b.table,
+        pose=b.pose,
         prev_pose=state.pose,
-        pyramid=pyr_new,
-        frame_idx=new_frame_idx,
-        next_uid=next_uid,
+        pyramid=a.pyramid,
+        frame_idx=b.new_frame_idx,
+        next_uid=b.next_uid,
         rng=state.rng,
-        window=window,
-        last_kf_idx=last_kf_idx,
+        window=b.window,
+        last_kf_idx=b.last_kf_idx,
         kf_adaptive=state.kf_adaptive,
         last_speed=last_speed,
     )
     out = StepOutput(
-        pose=pose,
-        pose_ok=pose_ok,
-        num_tracked=tracked.sum(dim=-1),
-        num_triangulated=(table.state == STATE_TRIANGULATED).sum(dim=-1),
-        num_candidates=candidates.sum(dim=-1),
-        num_pnp_inliers=pnp.num_inliers,
-        num_new_landmarks=good_new.sum(dim=-1),
-        frozen=frozen,
+        pose=b.pose,
+        pose_ok=b.pose_ok,
+        num_tracked=a.tracked.sum(dim=-1),
+        num_triangulated=(b.table.state == STATE_TRIANGULATED).sum(dim=-1),
+        num_candidates=b.candidates.sum(dim=-1),
+        num_pnp_inliers=a.pnp.num_inliers,
+        num_new_landmarks=b.good_new.sum(dim=-1),
+        frozen=b.frozen,
     )
     return new_state, out
 

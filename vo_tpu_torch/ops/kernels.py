@@ -23,7 +23,10 @@ fallback). `use_kernel=False` asks for the plain version on purpose (the
 `--no-pallas` twin); `use_kernel=True` with a CPU tensor raises.
 
 Each wrapper adds one to `launch_counts[name]` where it launches its kernel
-and nowhere else, so a run can prove which path it took. A launch over more
+and nowhere else, so a run can prove which path it took. Inside a CUDA graph
+the launch happens at each replay, not when Python calls the wrapper: the
+captured rollout (models/graphed.py) captures under `uncounted` and adds
+each graph's launches at every replay. A launch over more
 than one lane counts under the `_batched` name (K1b, K2b), any other under
 the plain name (K1, K2); a launch of the pair counts once, under the
 gather's names.
@@ -37,6 +40,7 @@ context is entered only for a tensor that is not on the current device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -55,12 +59,34 @@ launch_counts = {
     "extract_patches_batched": 0,
 }
 
+# The __global__ function (csrc/) that each counter's launches run: its name
+# is in the kernel's node of a CUDA graph and in a profiler trace.
+SYMBOLS = {
+    "corner_response_nms": "corner_nms_kernel",
+    "corner_response_nms_batched": "corner_nms_kernel",
+    "extract_patches": "patch_gather_kernel",
+    "extract_patches_batched": "patch_gather_kernel",
+}
+
 _MODES = {"shi_tomasi": 0, "harris": 1}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside do not count. A CUDA graph's capture records the
+    launches of its segment (its replays count them: models/graphed.py),
+    and the warm-up that capture needs runs on a scratch copy of the state:
+    neither is a launch of the path."""
+    saved = dict(launch_counts)
+    try:
+        yield
+    finally:
+        launch_counts.update(saved)
 
 
 def _wants_kernel(t: torch.Tensor, use_kernel: bool | None) -> bool:

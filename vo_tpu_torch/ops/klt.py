@@ -28,6 +28,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from vo_tpu_torch.geom.points import device_vector
 from vo_tpu_torch.ops.kernels import extract_patch_pairs
 
 # Max |d| within one level before window samples clamp at the patch border.
@@ -83,7 +84,7 @@ def _lk_level(
     # themselves are built only by the plain version of the gather.
     pad = radius + MARGIN + 2
     zero = torch.zeros(2, dtype=torch.float32, device=pt_prev.device)
-    bound = torch.tensor([w - 1.0, h - 1.0], dtype=torch.float32, device=pt_prev.device)
+    bound = device_vector((w - 1.0, h - 1.0), pt_prev.device)
 
     # ---- Both patch loads of the level: the template around pt_prev in the
     # previous image, the search patch around pt_prev + guess in the next ---

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from vo_tpu_torch.geom.lie import se3_exp
-from vo_tpu_torch.geom.points import bmat, skew, to_homogeneous
+from vo_tpu_torch.geom.points import bmat, inverse, skew, to_homogeneous
 from vo_tpu_torch.ops.linalg import spd_solve_small
 from vo_tpu_torch.ops.ransac import (
     RansacResult,
@@ -221,7 +221,7 @@ def bearing_rays(uv: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """Pixels (..., 2) -> unit bearing vectors (..., 3) via K^-1 (K (3, 3),
     or per lane (B, 3, 3) against uv (B, ..., 2))."""
     h = to_homogeneous(uv)
-    r = (bmat(torch.linalg.inv(K), h) @ h[..., None])[..., 0]
+    r = (bmat(inverse(K), h) @ h[..., None])[..., 0]
     return r / torch.clamp(torch.linalg.vector_norm(r, dim=-1, keepdim=True), min=1e-20)
 
 
@@ -263,6 +263,13 @@ class PnPResult(NamedTuple):
     errors: torch.Tensor  # (..., N) pixel reprojection errors of best model
 
 
+def pnp_budget(num_hypotheses: int | None = None, outlier_ratio: float = 0.5,
+               confidence: float = 0.9999) -> int:
+    """The hypotheses `pnp_ransac` scores: the given budget, or the static
+    count for the outlier ratio and confidence."""
+    return num_hypotheses or num_iterations(confidence, outlier_ratio, 4)
+
+
 def pnp_ransac(
     key: Samplers,
     X_w: torch.Tensor,
@@ -277,7 +284,7 @@ def pnp_ransac(
 ) -> PnPResult:
     """RANSAC-P3P localization + Gauss-Newton refinement on inliers."""
     n = X_w.shape[-2]
-    h = num_hypotheses or num_iterations(confidence, outlier_ratio, 4)
+    h = pnp_budget(num_hypotheses, outlier_ratio, confidence)
 
     def model_fn(sample):
         sx, suv = sample

@@ -8,7 +8,9 @@ Randomness: where the reference takes a `jax.random` key, the port takes a
 *sampler* — a `torch.Generator` (the draws happen on its device), or a
 callable with `sample_indices`' remaining arguments that returns (H, s)
 indices drawn elsewhere. The tests use the latter to replay the JAX
-package's exact draws.
+package's exact draws. `Drawn` is such a callable over uniforms drawn ahead
+by `draw_uniforms`: the captured rollout's sampler, which gives a
+generator's indices inside a CUDA graph.
 
 Lanes: data with a leading lane axis (B, N, ...) runs B independent RANSACs
 in one pass — (B, H, s) indices, (B, H, N) errors scored per lane, the
@@ -95,17 +97,55 @@ def sample_indices(
         idx = key(num_hypotheses, num_points, sample_size, valid)
         dev = valid.device if valid is not None else None
         return torch.as_tensor(idx, device=dev).long()
-    dev = key.device
+    return gumbel_top_k(draw_uniforms(key, num_hypotheses, num_points), sample_size, valid)
+
+
+def draw_uniforms(gen: torch.Generator, num_hypotheses: int, num_points: int) -> torch.Tensor:
+    """The one random draw of `sample_indices`: (H, N) uniforms from `gen`
+    on its device."""
+    return torch.rand((num_hypotheses, num_points), generator=gen, device=gen.device)
+
+
+def gumbel_top_k(u: torch.Tensor, sample_size: int,
+                 valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The rest of `sample_indices` after the draw: Gumbel noise from the
+    (H, N) uniforms `u`, -inf logits on invalid slots, the top `sample_size`
+    of each row. It draws nothing, so a CUDA graph can hold it."""
+    dev = u.device
     logits = (
-        torch.zeros((num_points,), dtype=torch.float32, device=dev)
+        torch.zeros((u.shape[-1],), dtype=torch.float32, device=dev)
         if valid is None
         else torch.where(valid.to(dev), 0.0, -float("inf"))
     )
-    u = torch.rand((num_hypotheses, num_points), generator=key, device=dev)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     g = -torch.log(-torch.log(u))
     _, idx = top_k(logits[None, :] + g, sample_size)
     return idx
+
+
+class Drawn:
+    """A sampler whose uniforms were drawn ahead into `u` (`draw_uniforms`
+    with the lane's generator, same shape, same order as `sample_indices`
+    would draw them): it gives the indices that generator would have given,
+    and draws nothing itself. The captured rollout (models/graphed.py)
+    draws outside its graphs into a static `u` and hands this to the step."""
+
+    def __init__(self, u: torch.Tensor):
+        self.u = u
+
+    def __call__(self, num_hypotheses, num_points, sample_size, valid=None) -> torch.Tensor:
+        if tuple(self.u.shape) != (num_hypotheses, num_points):
+            raise ValueError(f"uniforms drawn as {tuple(self.u.shape)}, the RANSAC asks "
+                             f"for {(num_hypotheses, num_points)}")
+        return gumbel_top_k(self.u, sample_size, valid)
+
+
+def drawn_hypotheses(num_hypotheses: int, chunk_size: int = 1024) -> int:
+    """How many hypotheses `ransac` draws for a budget: the budget, or whole
+    chunks of `chunk_size` above it."""
+    if num_hypotheses <= chunk_size:
+        return num_hypotheses
+    return -(-num_hypotheses // chunk_size) * chunk_size
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -190,7 +230,7 @@ def ransac(
             errors=pick(errors, best),
         )
 
-    n_chunks = -(-num_hypotheses // chunk_size)
+    n_chunks = drawn_hypotheses(num_hypotheses, chunk_size) // chunk_size
     idx = sample_indices(key, n_chunks * chunk_size, num_points, sample_size, valid)
     idx = idx.reshape(idx.shape[:-2] + (n_chunks, chunk_size, sample_size))
     best_score = None

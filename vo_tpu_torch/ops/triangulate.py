@@ -34,12 +34,27 @@ def triangulate_dlt(
     """uv1, uv2: (..., N, 2); P1, P2: one matrix for all points (..., 3, 4)
     or one per point (..., N, 3, 4) -> (..., N, 3) points in the frame the
     projection matrices map from. Leading axes are lanes."""
+    _, vecs = eigh_finite(dlt_system(P1, P2, uv1, uv2))  # ascending eigenvalues
+    return dlt_points(vecs)
+
+
+def dlt_system(
+    P1: torch.Tensor, P2: torch.Tensor, uv1: torch.Tensor, uv2: torch.Tensor
+) -> torch.Tensor:
+    """The (..., N, 4, 4) A^T A of `triangulate_dlt`, before its eigh. The
+    step splits there: eigh checks its result on the host, which a CUDA
+    graph cannot hold."""
     if P1.ndim == uv1.ndim:
         P1 = P1.unsqueeze(-3).expand(uv1.shape[:-1] + (3, 4))
     if P2.ndim == uv2.ndim:
         P2 = P2.unsqueeze(-3).expand(uv2.shape[:-1] + (3, 4))
     A = torch.cat([_dlt_rows(P1, uv1), _dlt_rows(P2, uv2)], dim=-2)  # (N, 4, 4)
-    _, vecs = eigh_finite(A.transpose(-1, -2) @ A)  # ascending eigenvalues
+    return A.transpose(-1, -2) @ A
+
+
+def dlt_points(vecs: torch.Tensor) -> torch.Tensor:
+    """Points from the eigenvectors (..., N, 4, 4) of `dlt_system`, ascending:
+    the first, dehomogenized."""
     X_h = vecs[..., :, 0]
     return X_h[..., :3] / _guard(X_h[..., 3:4], 1e-12)
 

@@ -261,7 +261,7 @@ def _rollout_main(args, backend: str, dev) -> int:
     import torch
 
     from vo_tpu_torch.data import Sequence, synthetic
-    from vo_tpu_torch.models.pipeline import bootstrap, map_state
+    from vo_tpu_torch.models.pipeline import ROLLED, bootstrap, executor_since, map_state
     from vo_tpu_torch.ops import kernels
     from vo_tpu_torch.parallel.mesh import broadcast
     from vo_tpu_torch.parallel.multiseq import (
@@ -309,6 +309,7 @@ def _rollout_main(args, backend: str, dev) -> int:
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     dt_best = None
+    rolled = dict(ROLLED)
     for r in range(max(2, args.repeats)):
         states = lanes()
         kernels.reset_launch_counts()
@@ -339,6 +340,7 @@ def _rollout_main(args, backend: str, dev) -> int:
         "gsum_ok": gsum_ok,
         "finite": finite,
         "pose_ok": int(every.pose_ok.sum()),
+        "executor": executor_since(rolled),
         "launches": {k: [row[i] for row in all_counts] for i, k in enumerate(names)},
         "seconds": round(time.perf_counter() - t_start, 3),
         "process_id": pid,

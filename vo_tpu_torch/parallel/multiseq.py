@@ -24,7 +24,7 @@ from typing import Sequence
 
 import torch
 
-from vo_tpu_torch.models.pipeline import StepOutput, VOState, map_state, vo_step
+from vo_tpu_torch.models.pipeline import StepOutput, VOState, map_state, vo_rollout, vo_step
 from vo_tpu_torch.ops.ransac import Sampler, is_lane_samplers
 from vo_tpu_torch.parallel.mesh import all_gather, axis_index, axis_size, local_rows
 from vo_tpu_torch.utils.config import VOConfig
@@ -68,16 +68,23 @@ def batched_vo_step(
 
 
 def batched_vo_rollout(
-    states: VOState, images: torch.Tensor, Ks: torch.Tensor, cfg: VOConfig
+    states: VOState, images: torch.Tensor, Ks: torch.Tensor, cfg: VOConfig,
+    graph: bool = True,
 ) -> tuple[VOState, StepOutput]:
-    """Run `batched_vo_step` over a stacked (N, B, H, W) frame block: N
-    sequential frames of B independent sequences in lockstep. Returns the
-    final batched state and the per-frame StepOutputs stacked to (N, B, ...)."""
-    outs = []
-    for block in images:
-        states, out = batched_vo_step(states, block, Ks, cfg)
-        outs.append(out)
-    return states, StepOutput(*(torch.stack(f) for f in zip(*outs)))
+    """`vo_rollout` over a stacked (N, B, H, W) frame block: N sequential
+    frames of B independent sequences in lockstep, after checking the
+    shapes. Returns the final batched state and the per-frame StepOutputs
+    stacked to (N, B, ...). On CUDA lanes the step replays as CUDA graphs
+    (models/graphed.py); `graph=False` and the CPU run the eager loop."""
+    if not is_lane_samplers(states.rng):
+        raise ValueError("batched_vo_rollout needs a batched state (replicate_state / "
+                         "stack_states)")
+    b = len(states.rng)
+    if images.ndim != 4 or images.shape[1] != b or Ks.shape != (b, 3, 3):
+        raise ValueError(
+            f"{b} lanes need images (N, B, H, W) and Ks (B, 3, 3), got "
+            f"{tuple(images.shape)} and {tuple(Ks.shape)}")
+    return vo_rollout(states, images, Ks, cfg, graph)
 
 
 def shard_batched_state(states: VOState, mesh) -> VOState:

@@ -13,14 +13,17 @@ through `Sequence("synthetic", path=--data-root)` (rendered on the device into
 generator seeded 2023, moved to the device in one transfer, rolled once to
 warm up (eagerly) and once timed with `vo_rollout` (one synchronize at the
 end), then ATE/RPE against the exact GT. The timed rollout replays the
-step's CUDA graphs (models/graphed.py), captured between the two rollouts:
-the line's `executor` says so ("eager" on the CPU), `warm_fps` is the eager
-warm-up's frames/s and `capture_s` the capture's seconds.
+step's CUDA graph, one a frame (models/graphed.py), captured between the
+two rollouts: the line's `executor` says so ("eager" on the CPU), `graphs`
+holds the host syncs a step, the recoveries and keyframes counted on the
+device and the graphs' nodes, `warm_fps` is the eager warm-up's frames/s
+and `capture_s` the capture's seconds.
 
 The two rollouts start from the same state and make the same RANSAC draws:
-the state's sampler is a stateful `torch.Generator` (in the JAX package the
-key sits inside the immutable state), so its state is saved before the
-warm-up and restored before the timed run; neither `vo_step` nor the
+the state's two samplers (PnP's and the recovery's) are stateful
+`torch.Generator`s (in the JAX package the key sits inside the immutable
+state), so their states are saved before the warm-up and restored before
+the timed run; neither `vo_step` nor the
 captured rollout writes the caller's state (the graphs run on static
 buffers of their own and hand back copies).
 
@@ -86,13 +89,13 @@ def warm_and_timed(state, stack, K, cfg, repeats: int = 1) -> Rollouts:
     of the step's CUDA graphs outside the timed window (as the JAX package
     compiles inside its warm-up), then `repeats` timed runs that replay
     them (the CPU runs them eagerly), each with the warm-up's draws (the
-    sampler rewound to where it stood before it); `seconds` is the best of
+    samplers rewound to where they stood before it); `seconds` is the best of
     them, `executor` what the timed runs ran."""
     from vo_tpu_torch.models.graphed import capture_ahead
-    from vo_tpu_torch.models.pipeline import ROLLED, executor_since, vo_rollout
+    from vo_tpu_torch.models.pipeline import ROLLED, executor_since, rewinder, vo_rollout
 
     dev = stack.device
-    saved = state.rng.get_state()
+    rewind = rewinder(state)
     sync(dev)
     t0 = time.perf_counter()
     _, warm = vo_rollout(state, stack, K, cfg, graph=False)
@@ -102,7 +105,7 @@ def warm_and_timed(state, stack, K, cfg, repeats: int = 1) -> Rollouts:
     best = float("inf")
     before = dict(ROLLED)
     for _ in range(repeats):
-        state.rng.set_state(saved)
+        rewind()
         sync(dev)
         t0 = time.perf_counter()
         final, timed = vo_rollout(state, stack, K, cfg)
@@ -234,6 +237,7 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda:0" if args.device == "cuda" else "cpu")
     from vo_tpu_torch.data import Sequence
+    from vo_tpu_torch.models.graphed import summary as graph_summary
 
     run = bench_synthetic_full(dev, args.data_root, SYNTHETIC_CAPACITY)
     synth = run.result
@@ -243,6 +247,7 @@ def main(argv=None) -> int:
         "unit": "frames/s",
         "vs_baseline": None,
         "executor": run.rollouts.executor,
+        "graphs": graph_summary(),
         "warm_fps": synth["warm_fps"],
         "capture_s": synth["capture_s"],
         "device": card_name(dev),

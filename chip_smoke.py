@@ -30,14 +30,18 @@ Phases:
      `bench_synthetic_full`: the synthetic city written to disk by
      `generate` and read back through `Sequence("synthetic")`, two frames
      checked against the numpy renderer, bootstrap, then an eager warm-up
-     and a timed `vo_rollout` that replays the step's CUDA graphs
-     (vo_tpu_torch/models/graphed.py, captured between the two) with
-     VOConfig(capacity=1024); gates the launch counts of both rollouts,
-     every StepOutput field of the captured rollout bit-equal to the eager
-     warm-up's, finiteness, the pose_ok count and the ATE against exact
-     ground truth; prints both frames/s, the capture's seconds, the graphs
-     and their nodes, the host syncs a step, the eager boundaries and the
-     recovery and keyframe branches taken;
+     and a timed `vo_rollout` that replays the step's CUDA graph, one a
+     frame, R and C as IF nodes (vo_tpu_torch/models/graphed.py, captured
+     between the two) with VOConfig(capacity=1024); gates the launch
+     counts of both rollouts, every StepOutput field of the captured
+     rollout bit-equal to the eager warm-up's, one graph a frame holding
+     two IF nodes and no host sync in it, finiteness, the pose_ok count and
+     the ATE against exact ground truth; the DLT's eigh on the card
+     (ops/cusolver.py) bit-equal to torch.linalg.eigh on the headline's own
+     DLT systems, and R's eighs and SVDs against torch.linalg (reported);
+     prints both frames/s, the capture's seconds, the graphs and their
+     nodes, the host syncs a step and the frames on which R and C ran, as
+     the device counted them;
   7b. `bench`: the measurement entry points. (a) K1 and the K2 pair at KITTI
      05's frame size (370x1226) and its pyramid levels against their plain
      versions, timed; (b) bench_torch's `bench_kitti_probe` over the first 6
@@ -70,6 +74,10 @@ Phases:
      its own; gates the batched launch counts, finiteness, per-lane pose_ok,
      every lane bit-equal to the same lanes rolled eagerly and, at the full
      600 frames a lane (`--multiseq-frames 600`; 60 by default), the ATE;
+     then R inside the graph: three lanes at capacity 512, the third fed
+     seeded noise from frame 3 (lost on every frame), 20 steps captured
+     against eager bit for bit, the device's count of R's frames equal to
+     the eager step's, no host sync;
   9. `data`: the disk data layer at full width. (a) what the machine has
      for decoding (g++, the png.h and jpeglib.h headers, PIL, cv2,
      matplotlib); the native frame loader must build where the headers
@@ -119,11 +127,12 @@ of the wrapper (what the path pays; at these sizes mostly the host's enqueue)
 and `device_ms` by replaying the same calls captured in a CUDA graph (what
 the device needs once the host is out of the way).
 
-Every rollout of every phase replays the step's CUDA graphs unless it is
+Every rollout of every phase replays the step's CUDA graph unless it is
 an eager warm-up or the eager comparison named above; a capture or a replay
-that fails raises and fails its phase (nothing falls back to eager). The
-kernels' launch counts are the graphs' replays': a capture records what a
-graph launches and each replay adds it.
+that fails raises and fails its phase (nothing falls back to eager, and no
+predicate is read on the host). The kernels' launch counts are the graphs'
+replays': a capture records what a graph launches and each replay adds
+it.
 
 Prints the card line, a JSON line describing every kernel (its times beside
 its bound, the plain version and, where there is one, a single PyTorch
@@ -181,6 +190,7 @@ MULTISEQ_ATE_FACTOR = 2.0
 MULTISEQ_ATE_FLOOR_M = 2.0
 # pose_ok must hold on 95% of a lane's frames (567 of 597).
 MULTISEQ_POSE_OK_SHARE = 0.95
+RECOVERY_STEPS = 20  # steps of the three lanes whose third loses its pose (>= 16)
 
 # The run_vo_torch phases. ATE yardsticks are the JAX package's own figures
 # (EVAL.md, taken on a TPU): yardsticks of ACCURACY only.
@@ -650,16 +660,16 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     graphs = None
     if runner is not None:
         st = runner.stats
-        graphs = dict(graphs=st.graphs, nodes=sum(n or 0 for n in st.graphs.values()),
+        graphs = dict(graphs=st.graphs, conditional_nodes=st.conditionals,
                       capture_s=round(st.capture_s, 3),
                       syncs_per_step=st.syncs / max(st.frames, 1),
-                      recoveries=st.recoveries, keyframe_replays=st.keyframes,
-                      frames=st.frames, boundaries=list(st.boundaries))
-        print(f"[headline] graphs and their nodes {st.graphs}; host syncs a step "
-              f"{graphs['syncs_per_step']:.2f}; recovery ran on {st.recoveries} of "
-              f"{st.frames} frames, C replayed on {st.keyframes}")
-        for b in st.boundaries:
-            print(f"[headline] eager between graphs: {b}")
+                      recoveries=st.recoveries, keyframes=st.keyframes, frames=st.frames)
+        print(f"[headline] one graph a frame: {st.graphs['frame']} nodes, "
+              f"{st.conditionals} IF nodes (R's body {st.graphs.get('R')} nodes, C's "
+              f"{st.graphs.get('C')}); captured in {st.capture_s:.2f} s; host syncs a step "
+              f"{graphs['syncs_per_step']:.2f}; on the device's count R ran on "
+              f"{st.recoveries} of {st.frames} frames, C on {st.keyframes}")
+    routes = _eigh_routes(dev, run, cfg)
     print(f"[headline] ATE {ate:.4f} m (reference {REFERENCE_ATE_M} m, drift "
           f"{100.0 * (ate - REFERENCE_ATE_M) / REFERENCE_ATE_M:+.1f}%), "
           f"RPE {res['rpe_trans_m']:.5f} m / {res['rpe_rot_deg']:.5f} deg")
@@ -670,7 +680,7 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
                           seconds=run.rollouts.seconds,
                           warm_seconds=run.rollouts.warm_seconds,
                           warm_equals_timed=same, fields_equal=equal, graphs=graphs,
-                          launches=counts, traced=traced)))
+                          launches=counts, traced=traced, linalg_routes=routes)))
     records["corner_response_nms"]["launches"] = counts["corner_response_nms"]
     records["extract_patches"]["launches"] = counts["extract_patches"]
     HANDOFF["ba_window"] = (run.rollouts.state.window, torch.as_tensor(run.seq.K, device=dev))
@@ -703,6 +713,12 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
                      f"{[k for k, v in equal.items() if not v]} (poses max {d:.3g})")
     if run.rollouts.executor != "graphs" or runner is None:
         fails.append(f"the timed rollout ran {run.rollouts.executor}, not the captured graphs")
+    elif set(graphs["graphs"]) != {"frame", "R", "C"} or graphs["conditional_nodes"] != 2 \
+            or graphs["syncs_per_step"] != 0:
+        fails.append(f"want one graph a frame holding two IF nodes (R, C) and no host sync, "
+                     f"got {graphs}")
+    if not routes["dlt_equal"]:
+        fails.append(f"the DLT's eigh route differs from torch.linalg.eigh: {routes}")
     want_traced = {"corner_nms_kernel": TRACED_FRAMES,
                    "patch_gather_kernel": levels * TRACED_FRAMES}
     if (traced["trace"] != want_traced or traced["counted"] != want_traced
@@ -719,6 +735,56 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
         fails.append(f"ATE {ate:.4f} m above the {ATE_GATE_M} m gate")
     if fails:
         raise AssertionError("; ".join(fails))
+
+
+def _eigh_routes(dev, run, cfg) -> dict:
+    """The step's eigh and SVD routes on the card (ops/cusolver.py: the
+    cuSOLVER routines torch.linalg calls, no host read) against
+    torch.linalg on the headline's own systems: the DLT's (B1's systems for
+    frame 3 from the bootstrap state: must be bit-equal), and every eigh
+    and SVD that R makes on that frame (reported)."""
+    import torch
+
+    from vo_tpu_torch.models import pipeline
+    from vo_tpu_torch.ops import cusolver, linalg
+
+    state = pipeline.map_state(
+        lambda x: x[None], run.rollouts.state, rng=[torch.Generator(device=dev).manual_seed(0)],
+        rec_rng=[torch.Generator(device=dev).manual_seed(1)])
+    image = torch.as_tensor(run.seq.get_frame(3), device=dev)[None]
+    K = torch.as_tensor(run.seq.K, device=dev)[None]
+    a = pipeline.step_track(state, image, K, cfg)
+    _, dlt = linalg._finite_rows(pipeline.step_locate(state, a, K, cfg).system)
+    got, want = cusolver.syev_batched(dlt), torch.linalg.eigh(dlt)
+    routes = dict(dlt_shape=list(dlt.shape), dlt_equal=all(map(torch.equal, got, want)),
+                  dlt_max_abs=max(_max_diff(g, w) for g, w in zip(got, want)), recovery=[])
+    real = {name: getattr(cusolver, name) for name in ("syev_batched", "gesvdj_batched")}
+    plain = {"syev_batched": torch.linalg.eigh, "gesvdj_batched": torch.linalg.svd}
+
+    def recording(name):
+        def call(A):
+            out = real[name](A)
+            ref = plain[name](A)
+            routes["recovery"].append(dict(
+                routine=name, shape=list(A.shape), equal=all(map(torch.equal, out, ref)),
+                max_abs=max(_max_diff(o, r) for o, r in zip(out, ref))))
+            return out
+        return call
+
+    try:
+        for name in real:
+            setattr(cusolver, name, recording(name))
+        pipeline.step_recover(state, a, K, cfg, pipeline.recovery_samplers(state.rec_rng, cfg))
+    finally:
+        for name, fn in real.items():
+            setattr(cusolver, name, fn)
+    print(f"[headline] the DLT's eigh {routes['dlt_shape']} on the card against "
+          f"torch.linalg.eigh: bit-equal {routes['dlt_equal']} (max |diff| "
+          f"{routes['dlt_max_abs']:.3g})")
+    for r in routes["recovery"]:
+        print(f"[headline] R's {r['routine']} {r['shape']} against torch.linalg: bit-equal "
+              f"{r['equal']} (max |diff| {r['max_abs']:.3g})")
+    return routes
 
 
 def _traced_kernels(fn) -> dict:
@@ -857,8 +923,83 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
         counts["corner_response_nms"] + dcounts["corner_response_nms"])
     records["extract_patches"]["launches_multiseq"] = (
         counts["extract_patches"] + dcounts["extract_patches"])
+    del dseq, douts
+    _free()
+    _recovery_in_the_graph(dev, cfg, fails)
     if fails:
         raise AssertionError("; ".join(fails))
+
+
+def _recovery_in_the_graph(dev, cfg, fails: list) -> None:
+    """Three lanes at 640x480, capacity 512: two of the city with their own
+    seeds and one fed seeded noise from frame 3, which loses its pose on
+    every frame, so the captured rollout takes R inside its IF node on
+    every frame. Captured against eager, every StepOutput field bit for
+    bit, and the device's count of R's frames against the eager step's."""
+    import torch
+
+    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.models import graphed, pipeline
+    from vo_tpu_torch.parallel import multiseq
+
+    steps = RECOVERY_STEPS
+    seq = synthetic.render_sequence(synthetic.DEFAULT_SPEC, dev, steps + 3)
+    frames = seq.frames
+    lost = frames.clone()
+    lost[3:] = torch.as_tensor(np.random.default_rng(99).uniform(
+        0, 255, tuple(lost[3:].shape)).astype(np.float32), device=dev)
+    states = [pipeline.bootstrap(f[0], f[2], seq.K, cfg,
+                                 torch.Generator(device=dev).manual_seed(s))[0]
+              for f, s in ((frames, 2023), (frames, 2024), (lost, 2025))]
+    state = multiseq.stack_states(states)
+    images = torch.stack([frames[3:], frames[3:], lost[3:]], dim=1)
+    Ks = seq.K.expand(3, 3, 3).contiguous()
+    rewind = pipeline.rewinder(state)
+    taken = []
+    eager_branch = pipeline.eager_branch
+
+    def counting(name, pred, run, skipped):
+        taken.append((name, bool(pred)))
+        return eager_branch(name, pred, run, skipped)
+
+    pipeline.eager_branch = counting
+    try:
+        t0 = time.perf_counter()
+        _, eager = multiseq.batched_vo_rollout(state, images, Ks, cfg, graph=False)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    finally:
+        pipeline.eager_branch = eager_branch
+    rewind()
+    graphed.RUNNERS.clear()
+    t0 = time.perf_counter()
+    _, got = multiseq.batched_vo_rollout(state, images, Ks, cfg)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    st = graphed.RUNNERS.runners()[0].stats
+    equal = {name: bool(torch.equal(a, b)) for name, a, b in zip(got._fields, eager, got)}
+    eager_r = sum(ran for name, ran in taken if name == "R")
+    eager_c = sum(ran for name, ran in taken if name == "C")
+    print(f"[multiseq] R in the graph: 3 lanes (one fed noise), {steps} steps; eager "
+          f"{eager_s:.2f} s, captured {graph_s:.2f} s with the capture; pose_ok by lane "
+          f"{got.pose_ok.sum(dim=0).tolist()}; R ran on {st.recoveries} frames by the "
+          f"device's count ({eager_r} eager), C on {st.keyframes} ({eager_c}); host syncs "
+          f"{st.syncs}; captured equal to eager {equal}")
+    print(json.dumps(dict(phase="multiseq", part="recovery_in_graph", steps=steps,
+                          fields_equal=equal, recoveries=st.recoveries,
+                          eager_recoveries=eager_r, keyframes=st.keyframes,
+                          eager_keyframes=eager_c, syncs=st.syncs, graphs=st.graphs,
+                          conditional_nodes=st.conditionals)))
+    if not all(equal.values()):
+        fails.append(f"R in the graph: captured differs from eager in "
+                     f"{[k for k, v in equal.items() if not v]}")
+    if (st.recoveries, st.keyframes) != (eager_r, eager_c) or st.recoveries < steps:
+        fails.append(f"R in the graph: the device counted R {st.recoveries} and C "
+                     f"{st.keyframes} times, eager {eager_r} and {eager_c}; want R on all "
+                     f"{steps} frames")
+    if st.syncs:
+        fails.append(f"R in the graph: {st.syncs} host syncs")
+    graphed.RUNNERS.clear()
 
 
 def _kitti_sized_kernels(dev, records: dict) -> None:

@@ -47,10 +47,12 @@ the live pose. It reports ATE with and without that back-end. Ranks use NCCL
 when each has a card of its own and Gloo otherwise (`--backend` chooses);
 every line says which.
 
-On the card every rollout replays the step's CUDA graphs, captured once per
-shape (vo_tpu_torch/models/graphed.py) and outside the timed windows;
-`--no-graph` runs it eagerly, with the same results. The JSON lines name
-the `executor` ("graphs" or "eager").
+On the card every rollout replays the step's CUDA graph, one a frame,
+captured once per shape (vo_tpu_torch/models/graphed.py) and outside the
+timed windows; `--no-graph` runs it eagerly, with the same results. The
+JSON lines name the `executor` ("graphs" or "eager") and, in `graphs`, the
+host syncs a step, the recoveries and keyframes counted on the device and
+each runner's graphs with their nodes (null when eager).
 """
 
 from __future__ import annotations
@@ -211,7 +213,7 @@ def run_batch(args, seq_ids, cfg, dev):
 
     from vo_tpu_torch.data import Sequence
     from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses
-    from vo_tpu_torch.models.pipeline import bootstrap
+    from vo_tpu_torch.models.pipeline import bootstrap, rewinder
     from vo_tpu_torch.parallel.multihost import frame_plan
     from vo_tpu_torch.parallel.multiseq import batched_vo_rollout, stack_states
 
@@ -234,13 +236,13 @@ def run_batch(args, seq_ids, cfg, dev):
     stack = torch.stack([torch.stack([frame(seq, plan[n]) for seq, plan in zip(seqs, plans)])
                          for n in range(args.steps)])  # (N, B, H, W)
     decoded.clear()
-    samplers = [st.rng.get_state() for st in states]
+    rewinds = [rewinder(st) for st in states]
 
     def lanes():
         # The rollout draws from the lanes' samplers: rewind them, so the
         # warm-up and the timed rollout make the same draws.
-        for st, saved in zip(states, samplers):
-            st.rng.set_state(saved)
+        for rewind in rewinds:
+            rewind()
         return stack_states(states)
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -273,6 +275,7 @@ def run_dataset(args) -> int:
     """The dataset lanes (`--sequences`) or the batch-size sweep (`--sweep`)."""
     import torch
 
+    from vo_tpu_torch.models.graphed import summary as graph_summary
     from vo_tpu_torch.models.pipeline import ROLLED, executor_since
     from vo_tpu_torch.utils.config import DetectorConfig, KLTConfig, VOConfig
 
@@ -297,7 +300,7 @@ def run_dataset(args) -> int:
                          "scaling": round(fps / base, 3), "executor": executor_since(row)})
             print(json.dumps(rows[-1]), flush=True)
         print(json.dumps({"metric": "multiseq_scaling", "rows": rows,
-                          "executor": executor_since(rolled)}))
+                          "executor": executor_since(rolled), "graphs": graph_summary()}))
         return 0
     seq_ids = args.sequences.split(",")
     fps, ates, _, _ = run_batch(args, seq_ids, cfg, dev)
@@ -307,6 +310,7 @@ def run_dataset(args) -> int:
         "agg_fps": round(fps, 2),
         "ate_rmse_m": ates,
         "executor": executor_since(rolled),
+        "graphs": graph_summary(),
         "device": device,
     }))
     return 0
@@ -316,6 +320,7 @@ def run_full(args) -> int:
     import torch
 
     from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.models.graphed import summary as graph_summary
     from vo_tpu_torch.models.pipeline import ROLLED, executor_since
     from vo_tpu_torch.utils.config import DetectorConfig, KLTConfig, VOConfig
 
@@ -359,6 +364,7 @@ def run_full(args) -> int:
         "steps": int(n_steps),
         "agg_fps": round(batch * n_steps / dt, 2),
         "executor": executor_since(rolled),
+        "graphs": graph_summary(),
         "device": torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu",
     }))
     return 0

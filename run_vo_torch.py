@@ -27,10 +27,14 @@ Examples:
 
 Runs on `cuda` unless `--device cpu` is given, and exits 2 without a GPU
 otherwise. On the card every chunk (every frame at `--chunk 1`) replays the
-step's CUDA graphs, captured once (vo_tpu_torch/models/graphed.py);
-`--no-graph` runs the step eagerly, op by op, with the same results. The
-final JSON line's `executor` names what ran ("graphs" or "eager"). `--viz-dir` (cv2) and the PDF figures (matplotlib) exit 2 before
-the run when their package is missing.
+step's CUDA graph, one a frame, captured once (vo_tpu_torch/models/graphed.py),
+with no host read inside the chunk; `--no-graph` runs the step eagerly, op
+by op, with the same results. The final JSON line's `executor` names what
+ran ("graphs" or "eager") and `graphs` what the graphs did (host syncs a
+step, the frames on which the recovery and the keyframe branch ran, counted
+on the device, each runner's graphs and their nodes; null when eager).
+`--viz-dir` (cv2) and the PDF figures (matplotlib) exit 2 before the run
+when their package is missing.
 """
 
 from __future__ import annotations
@@ -229,6 +233,7 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     from vo_tpu_torch.data import Sequence, synthetic
     from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
     from vo_tpu_torch.models.feature_table import STATE_TRIANGULATED
+    from vo_tpu_torch.models.graphed import summary as graph_summary
     from vo_tpu_torch.models.pipeline import (
         ROLLED,
         StepOutput,
@@ -452,6 +457,7 @@ def run(args, observer: Callable | None = None) -> tuple[int, Run | None]:
     est = np.stack(poses)
     result = {"fps_steady": fps, "frames": len(stats) + 2,
               "executor": executor_since(rolled),
+              "graphs": graph_summary(),
               "decoder": seq.decoder if disk else None,
               "prefetch": (dict(ring=frames.native_ring, wait_s=frames.wait_s)
                            if disk else None)}

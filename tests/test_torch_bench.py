@@ -38,7 +38,7 @@ KITTI_K = np.array([[707.0912, 0.0, 601.8873], [0.0, 707.0912, 183.1104], [0.0, 
 KITTI_H, KITTI_W, KITTI_CAPACITY = 370, 1226, 512
 
 
-GRAPH_KEYS = {"executor", "warm_fps", "capture_s"}
+GRAPH_KEYS = {"executor", "graphs", "warm_fps", "capture_s"}
 
 
 def _bench_py_keys() -> set:
@@ -189,7 +189,7 @@ def test_one_step_at_kitti_size_from_a_jax_state(kitti_sized_run, frame):
     imgs, states, outs = kitti_sized_run
     prev, jst, want = states[frame - 1], states[frame], outs[frame]
     _, k_pnp, k_rec = jax.random.split(prev.rng, 3)
-    st = tpipe.state_from_numpy(prev, "cpu", _replay([k_pnp, k_rec]))
+    st = tpipe.state_from_numpy(prev, "cpu", _replay([k_pnp]), _replay([k_rec]))
     st, out = tpipe.vo_step(st, torch.from_numpy(imgs[frame]), torch.from_numpy(KITTI_K),
                             VOConfig(capacity=KITTI_CAPACITY))
     assert [p.shape[-2:] for p in st.pyramid] == [(370, 1226), (185, 613), (93, 307),

@@ -58,9 +58,9 @@ def _assert_states_equal(a, b):
 
 @pytest.mark.parametrize("tracker", ["klt", "harris"])
 def test_checkpoint_roundtrip_and_resume(tmp_path, seq, tracker):
-    """save -> load gives every leaf back bit for bit, the sampler's stream
-    included: the next 3 steps of the restored state equal the
-    uninterrupted run's, poses and table."""
+    """save -> load gives every leaf back bit for bit, both samplers'
+    streams included (PnP's and the recovery's): the next 3 steps of the
+    restored state equal the uninterrupted run's, poses and table."""
     cfg = VOConfig(capacity=CAPACITY, tracker=tracker)
     state, _ = tpipe.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg,
                                torch.Generator().manual_seed(0))
@@ -71,7 +71,8 @@ def test_checkpoint_roundtrip_and_resume(tmp_path, seq, tracker):
     assert cfg2 == cfg and traj.shape == (1, 4, 4) and fids.tolist() == [0]
     _assert_states_equal(state2, state)
     assert torch.equal(state2.rng.get_state(), state.rng.get_state())
-    assert state2.rng is not state.rng
+    assert torch.equal(state2.rec_rng.get_state(), state.rec_rng.get_state())
+    assert state2.rng is not state.rng and state2.rec_rng is not state.rec_rng
 
     s1, s2 = state, state2
     for i in (4, 5, 6):
@@ -152,6 +153,24 @@ def test_v2_file_without_new_fields_fails_by_name(tmp_path, seq):
     assert "state/last_speed" in str(exc.value) and "state/table/miss" in str(exc.value)
 
 
+def test_a_file_without_the_recovery_stream_fails_by_name(tmp_path, seq):
+    """A port checkpoint written before the recovery drew from a stream of
+    its own has no "state/rec_rng": loading it raises and names the key,
+    and resumes once the caller passes the stream to continue with."""
+    cfg = VOConfig(capacity=CAPACITY)
+    state, _ = tpipe.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg,
+                               torch.Generator().manual_seed(0))
+    path = str(tmp_path / "before.npz")
+    tckpt.save_checkpoint(path, state, cfg)
+    _rewrite(path, drop=("state/rec_rng", "_rec_rng_device"))
+    with pytest.raises(KeyError, match="state/rec_rng"):
+        tckpt.load_checkpoint(path, "cpu")
+    given = torch.Generator().manual_seed(5)
+    state2, _, _, _ = tckpt.load_checkpoint(path, "cpu", rec_rng=given)
+    assert state2.rec_rng is given
+    _assert_states_equal(state2, state)
+
+
 def test_v1_positional_file_loads_when_the_count_matches(tmp_path, seq):
     cfg = VOConfig(capacity=CAPACITY)
     state, _ = tpipe.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg,
@@ -162,7 +181,8 @@ def test_v1_positional_file_loads_when_the_count_matches(tmp_path, seq):
 
     def positional(data):
         out = {f"leaf_{i}": data[k] for i, k in enumerate(keys)}
-        out.update({k: data[k] for k in ("_pyramid_levels", "_rng_device")})
+        out.update({k: data[k] for k in ("_pyramid_levels", "_rng_device", "state/rec_rng",
+                                          "_rec_rng_device")})
         return out
 
     _rewrite(path, rename=positional)
@@ -204,15 +224,19 @@ def test_a_jax_checkpoint_loads_in_the_port(tmp_path, seq):
     with pytest.raises(ValueError, match="jax.random key"):
         tckpt.load_checkpoint(path, "cpu")
     _, k_pnp, k_rec = jax.random.split(jstate.rng, 3)
-    state, cfg, traj, fids = tckpt.load_checkpoint(path, "cpu", rng=_replay([k_pnp, k_rec]))
+    with pytest.raises(KeyError, match="state/rec_rng"):  # no stream is guessed
+        tckpt.load_checkpoint(path, "cpu", rng=_replay([k_pnp]))
+    state, cfg, traj, fids = tckpt.load_checkpoint(path, "cpu", rng=_replay([k_pnp]),
+                                                  rec_rng=_replay([k_rec]))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     _assert_states_equal(state, tpipe.state_from_numpy(jstate, "cpu", None))
     assert traj.shape == (1, 4, 4)
     # The port writes the keys the JAX package wrote (but the sampler's device).
     own = str(tmp_path / "own.npz")
-    tckpt.save_checkpoint(own, state._replace(rng=torch.Generator()), cfg,
-                          trajectory=[np.eye(4)], frame_ids=[0])
-    assert set(np.load(own).files) - {"_rng_device"} == set(np.load(path).files)
+    tckpt.save_checkpoint(own, state._replace(rng=torch.Generator(), rec_rng=torch.Generator()),
+                          cfg, trajectory=[np.eye(4)], frame_ids=[0])
+    assert set(np.load(own).files) - {"_rng_device", "state/rec_rng", "_rec_rng_device"} \
+        == set(np.load(path).files)
 
     jnext, jout = jpipe.vo_step(jstate, frames[4], K, jcfg)
     nxt, out = tpipe.vo_step(state, seq.frames[4], seq.K, cfg)

@@ -241,10 +241,10 @@ def test_cuda_graphs_equal_the_eager_rollout(cuda_device, tracker):
     cfg = VOConfig(capacity=1024, tracker=tracker)
     state, _ = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg,
                                   torch.Generator(device=cuda_device).manual_seed(2023))
-    saved = state.rng.get_state()
+    rewind = pipeline.rewinder(state)
     runs = []
     for graph in (False, True):
-        state.rng.set_state(saved)
+        rewind()
         kernels.reset_launch_counts()
         rolled = dict(pipeline.ROLLED)
         final, outs = pipeline.vo_rollout(state, seq.frames[3:], seq.K, cfg, graph=graph)
@@ -256,3 +256,107 @@ def test_cuda_graphs_equal_the_eager_rollout(cuda_device, tracker):
         assert torch.equal(a, b), name
     assert all(torch.equal(a, b) for a, b in zip(graphed._leaves(final_e),
                                                  graphed._leaves(final_g)))
+    runner = graphed.RUNNERS.runners()[-1]
+    assert runner.stats.conditionals == 2 and runner.stats.syncs == 0
+
+
+def _dlt_systems(device, lanes, k, seed):
+    """A^T A of `ops/triangulate.py::dlt_system` for random views of random
+    points: the DLT's eigh at its shape."""
+    from vo_tpu_torch.ops.triangulate import dlt_system
+
+    rng = np.random.default_rng(seed)
+    R = np.linalg.qr(rng.normal(size=(lanes, k, 3, 3)))[0]
+    t = rng.normal(size=(lanes, k, 3, 1))
+    K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]])
+    P1 = K @ np.concatenate([R, t], -1)
+    P2 = np.broadcast_to(K @ np.eye(3, 4), P1.shape)
+    uv1, uv2 = rng.uniform(0, 600, (2, lanes, k, 2))
+    return dlt_system(*(torch.as_tensor(x, dtype=torch.float32, device=device)
+                        for x in (P1, P2, uv1, uv2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["dlt 1x1024", "dlt 6x512", "8-point 1x256", "refit 1",
+                                   "refit 3", "single 9x9"])
+def test_cusolver_eigh_is_torch_linalg_eigh(cuda_device, shape):
+    """ops/cusolver.py's eigh (cusolverDnXsyevBatched, no host read) gives
+    torch.linalg.eigh's bits at the step's shapes: the DLT systems of one
+    lane and of six, R's 8-point systems, its refit (one lane and three),
+    and the bootstrap's single refit."""
+    from vo_tpu_torch.ops import cusolver
+
+    if shape.startswith("dlt"):
+        lanes, k = (int(v) for v in shape.split()[1].split("x"))
+        A = _dlt_systems(cuda_device, lanes, k, 3)
+    else:
+        dims = {"8-point 1x256": (1, 256), "refit 1": (1,), "refit 3": (3,),
+                "single 9x9": ()}[shape]
+        M = torch.as_tensor(RNG.normal(size=dims + (20, 9)), dtype=torch.float32,
+                            device=cuda_device)
+        A = M.transpose(-1, -2) @ M
+    vals, vecs = cusolver.syev_batched(A)
+    want_vals, want_vecs = torch.linalg.eigh(A)
+    assert torch.equal(vals, want_vals) and torch.equal(vecs, want_vecs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 256, 3, 3), (1, 3, 3), (6, 3, 3), (3, 3)])
+def test_cusolver_svd_is_torch_linalg_svd(cuda_device, shape):
+    from vo_tpu_torch.ops import cusolver
+
+    A = torch.as_tensor(RNG.normal(size=shape), dtype=torch.float32, device=cuda_device)
+    for got, want in zip(cusolver.gesvdj_batched(A), torch.linalg.svd(A)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_the_frame_graph_holds_two_conditional_nodes(cuda_device):
+    """One graph a frame: its IF nodes for R and C, the kernels of
+    ops/kernels.py outside them (one K1, four K2 a step) and none inside,
+    where R's cuSOLVER kernels are."""
+    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.models import graphed, pipeline
+    from vo_tpu_torch.utils.cache import RunnerCache
+    from vo_tpu_torch.utils.config import VOConfig
+
+    seq = synthetic.render_sequence(synthetic.DEFAULT_SPEC, cuda_device, 5)
+    cfg = VOConfig(capacity=1024)
+    state, _ = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg,
+                                  torch.Generator(device=cuda_device).manual_seed(2023))
+    runner = graphed.runner_for(state, seq.frames[3:], seq.K, cfg, RunnerCache())
+    nodes = runner.frame.nodes
+    assert nodes.conditionals == 2 and runner.stats.graphs["frame"] == nodes.nodes
+    assert sum("corner_nms_kernel" in n for n in nodes.kernels) == 1
+    assert sum("patch_gather_kernel" in n for n in nodes.kernels) == 4
+    assert not any(s in n for n in nodes.body_kernels for s in ("corner_nms", "patch_gather"))
+    assert any("syev" in n or "sytrd" in n or "steqr" in n for n in nodes.body_kernels)
+
+
+@pytest.mark.cuda
+def test_graph_nodes_reads_kernels_inside_conditional_bodies(cuda_device):
+    """A K1 launch captured into a branch and the branch under an IF node:
+    `graph_nodes` finds it inside the body, a K2 launch outside it."""
+    from vo_tpu_torch.models import graphed
+
+    img = torch.as_tensor(RNG.uniform(0, 255, (64, 96)).astype(np.float32),
+                          device=cuda_device)
+    cor = torch.full((8, 2), 20, dtype=torch.int32, device=cuda_device)
+    pred = torch.ones((), dtype=torch.bool, device=cuda_device)
+    capture = graphed.CudaGraphs(cuda_device)
+    with capture.warming_up():
+        kernels.corner_response_nms(img, "shi_tomasi", 7, 0.04, 8, use_kernel=True)
+        kernels.extract_patches(img, cor, 5, use_kernel=True)
+    branch = capture.capture(
+        lambda: kernels.corner_response_nms(img, "shi_tomasi", 7, 0.04, 8, use_kernel=True),
+        branch=True)
+
+    def frame():
+        kernels.extract_patches(img, cor, 5, use_kernel=True)
+        capture.if_node(pred.clone(), branch)
+
+    nodes = capture.capture(frame).nodes
+    assert nodes.conditionals == 1
+    assert sum("patch_gather_kernel" in n for n in nodes.kernels) == 1
+    assert not any("corner_nms_kernel" in n for n in nodes.kernels)
+    assert sum("corner_nms_kernel" in n for n in nodes.body_kernels) == 1

@@ -521,7 +521,9 @@ def test_dataset_lanes_equal_their_single_runs_and_the_reference(city_layout, ca
     assert run_multiseq.main(argv + ["--platform", "cpu"]) is None
     ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     # The JAX package's keys, and what the rollouts ran (eager on the CPU).
-    assert set(mine) == set(ref) | {"executor"} and mine["metric"] == "multiseq_throughput"
+    assert set(mine) == set(ref) | {"executor", "graphs"}
+    assert mine["metric"] == "multiseq_throughput"
+    assert mine["graphs"] is None  # the CPU runs eagerly: no runner
     assert mine["executor"] == "eager"
     assert mine["batch"] == 2 and mine["ate_rmse_m"] == ates
     for got, want in zip(mine["ate_rmse_m"], ref["ate_rmse_m"]):
@@ -537,4 +539,5 @@ def test_sweep_prints_the_scaling_table(city_layout, capsys):
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     assert [r["batch"] for r in lines[:2]] == [1, 2] and lines[0]["scaling"] == 1.0
     assert all(r["executor"] == "eager" for r in lines[:2])  # the CPU runs eagerly
-    assert lines[-1] == {"metric": "multiseq_scaling", "rows": lines[:2], "executor": "eager"}
+    assert lines[-1] == {"metric": "multiseq_scaling", "rows": lines[:2], "executor": "eager",
+                         "graphs": None}

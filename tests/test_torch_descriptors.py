@@ -280,7 +280,8 @@ def test_harris_bootstrap_from_the_same_draws(frames, jax_harris_run):
     key, states, outs = jax_harris_run
     _, _, k_ransac = jax.random.split(key, 3)
     cfg = VOConfig(capacity=CAPACITY, tracker="harris")
-    st, out = tpipe.bootstrap(T(frames[0]), T(frames[2]), T(SPEC.K()), cfg, _replay([k_ransac]))
+    st, out = tpipe.bootstrap(T(frames[0]), T(frames[2]), T(SPEC.K()), cfg, _replay([k_ransac]),
+                              rec_rng=_replay([]))
     want = outs[2]
     assert bool(out.pose_ok) and bool(want.pose_ok)
     for name in ("num_tracked", "num_triangulated", "num_candidates", "num_pnp_inliers"):
@@ -299,7 +300,7 @@ def test_harris_step_from_a_jax_state(frames, jax_harris_run, frame):
     _, states, outs = jax_harris_run
     prev = states[frame - 1]
     _, k_pnp, k_rec = jax.random.split(prev.rng, 3)
-    st = tpipe.state_from_numpy(prev, "cpu", _replay([k_pnp, k_rec]))
+    st = tpipe.state_from_numpy(prev, "cpu", _replay([k_pnp]), _replay([k_rec]))
     cfg = VOConfig(capacity=CAPACITY, tracker="harris")
     st, out = tpipe.vo_step(st, T(frames[frame]), T(SPEC.K()), cfg)
     want, jst = outs[frame], states[frame]

@@ -4,7 +4,12 @@ segment once, "replay" runs it again on the same static buffers), at 160x120
 (focal 104), capacity 128, 12 steps of the city:
 
   * the runner equals the eager `vo_rollout` bit for bit, one lane and
-    three lanes with one of them lost, over recovery and BA frames;
+    three lanes with one of them lost, over recovery and BA frames, and with
+    a lane lost on some frames of the chunk and not on others; the frames
+    on which R ran, counted on the device, are the eager step's;
+  * a captured rollout makes no host read (the eager branch is never
+    called, no sync is counted); the warm-up runs R and C and gives their
+    results slots;
   * the caller's state is not written; a chunk's outputs are not static
     buffers (the next chunk leaves them as they were);
   * a second rollout under the same key captures nothing; launch counts
@@ -14,9 +19,10 @@ segment once, "replay" runs it again on the same static buffers), at 160x120
     give the generator's indices and leave it where the eager draw does;
   * from a JAX state, the runner's frames against the JAX package's jitted
     `vo_rollout` on replayed draws;
-  * the one step schedule (`pipeline.run_step`) over both host flags; the
-    check of counted launches against a graph's kernel nodes; the executor
-    a rollout reports, from what ran; a runner kept per frame dtype.
+  * the one step schedule (`pipeline.run_step`) over both device
+    predicates; the check of counted launches against a graph's kernel
+    nodes; the executor a rollout reports, from what ran; a runner kept per
+    frame dtype.
 
 The CUDA graphs themselves against the eager rollout are tested on the card
 in tests/test_torch_cuda.py (which imports no jax, so it runs there).
@@ -71,7 +77,7 @@ def _boot(frames, K, seed, cfg=CFG):
 
 
 def _gens(state):
-    return list(state.rng) if isinstance(state.rng, list) else [state.rng]
+    return tpipe.generators(state)
 
 
 def _captured(state, images, K, cfg=CFG, cache=None):
@@ -83,12 +89,13 @@ def _captured(state, images, K, cfg=CFG, cache=None):
     return out, graphed.runner_for(state, images, K, cfg, cache)
 
 
-def _lanes(frames, K):
+def _lanes(frames, K, noise=slice(3, None)):
     """Three lanes: two of the city with their own seeds, and one that sees
-    noise after its bootstrap, so that its PnP fails and R runs."""
+    noise on the frames `noise` after its bootstrap, so that its PnP fails
+    and R runs there."""
     lost = frames.clone()
-    lost[3:] = torch.from_numpy(
-        np.random.default_rng(99).uniform(0, 255, lost[3:].shape).astype(np.float32))
+    lost[noise] = torch.from_numpy(
+        np.random.default_rng(99).uniform(0, 255, lost[noise].shape).astype(np.float32))
     states = [_boot(frames, K, 2023), _boot(frames, K, 2024), _boot(lost, K, 2025)]
     images = torch.stack([frames[3:], frames[3:], lost[3:]], dim=1)
     return tmulti.stack_states(states), images, K.expand(3, 3, 3).contiguous()
@@ -117,11 +124,11 @@ def test_runner_equals_the_eager_rollout(city, lanes):
     for a, b in zip(graphed._leaves(final_e), graphed._leaves(final_g)):
         assert torch.equal(a, b)
     assert all(torch.equal(a, g.get_state()) for a, g in zip(after, _gens(state)))
-    assert final_g.rng is state.rng
-    # The run covered both host branches and the eigh boundary each frame.
+    assert final_g.rng is state.rng and final_g.rec_rng is state.rec_rng
+    # The run covered both branches.
     assert runner.stats.recoveries >= 1 and runner.stats.keyframes >= 1
-    assert runner.stats.frames == images.shape[0]
-    assert set(runner.graphs) == {"A", "B1", "B2", "C", "D"}
+    assert runner.stats.frames == images.shape[0] and runner.stats.syncs == 0
+    assert set(runner.branches) == {"R", "C"}
     if lanes == 3:  # the noise lane lost every frame; the city lanes did not
         assert not bool(got.pose_ok[:, 2].any()) and bool(got.pose_ok[:, :2].any(dim=0).all())
 
@@ -143,9 +150,9 @@ def test_chunk_outputs_survive_the_next_chunk(city):
     are the eager rollout of all frames."""
     frames, K = city
     state = _boot(frames, K, 2023)
-    saved = state.rng.get_state()
+    rewind = tpipe.rewinder(state)
     _, whole = tpipe.vo_rollout(state, frames[3:], K, CFG)
-    state.rng.set_state(saved)
+    rewind()
     cache = RunnerCache()
     (mid, first), _ = _captured(state, frames[3:9], K, cache=cache)
     kept = [t.clone() for t in first] + [t.clone() for t in graphed._leaves(mid)]
@@ -166,7 +173,7 @@ def test_a_second_rollout_under_the_same_key_captures_nothing(city):
     cfg = VOConfig(capacity=CAPACITY, ba=BAConfig(enabled=False))
     _, runner = _captured(_boot(frames, K, 2023, cfg), frames[3:6], K, cfg, cache)
     assert cache.captures == 2 and len(cache) == 2
-    assert set(runner.graphs) == {"A", "B1", "B2", "D"} and runner.stats.keyframes == 0
+    assert set(runner.branches) == {"R"} and runner.stats.keyframes == 0
 
 
 def test_launch_counts_accumulate_per_replay(city, monkeypatch):
@@ -202,8 +209,7 @@ def test_launch_counts_accumulate_per_replay(city, monkeypatch):
             "corner_response_nms_batched": 0, "extract_patches_batched": 0}
     assert counts == [want] * 3
     _, runner = _captured(_boot(frames, K, 2023), frames[3:4], K, cache=cache)
-    assert runner.graphs["A"].launches == {"extract_patches": 4}
-    assert runner.graphs["B2"].launches == {"corner_response_nms": 1}
+    assert runner.launches == {"extract_patches": 4, "corner_response_nms": 1}
 
 
 @pytest.mark.parametrize("shape", [(3, 3), (1, 3, 3), (6, 3, 3), (5, 4, 4)])
@@ -246,11 +252,12 @@ def test_runner_frames_match_the_jax_rollout(dot_world):  # noqa: F811
                                 jax.random.PRNGKey(1))
     jfinal, want = jpipe.vo_rollout(jstate, jnp.asarray(imgs[3:3 + n]), K, jcfg)
     assert bool(np.asarray(want.pose_ok).all())  # no recovery draw to replay
-    keys, key = [], jstate.rng
+    keys, rec_keys, key = [], [], jstate.rng
     for _ in range(n):  # vo_step's split: (next key, PnP's key, recovery's key)
-        key, k_pnp, _ = jax.random.split(key, 3)
+        key, k_pnp, k_rec = jax.random.split(key, 3)
         keys.append(k_pnp)
-    state = tpipe.state_from_numpy(jstate, "cpu", _replay(keys))
+        rec_keys.append(k_rec)
+    state = tpipe.state_from_numpy(jstate, "cpu", _replay(keys), _replay(rec_keys))
     (final, got), runner = _captured(state, torch.from_numpy(imgs[3:3 + n]),
                                      torch.from_numpy(K_DOTS), VOConfig(capacity=DOT_CAPACITY))
     assert runner.stats.keyframes >= 1
@@ -277,10 +284,12 @@ def test_a_captured_runner_needs_generators_on_the_card(city):
                                        (True, True)])
 def test_the_step_schedule(lost, push):
     """`pipeline.run_step`, the one schedule that `vo_step` and the runner
-    both walk: A, the `lost` flag, R only when a lane is lost, B1, eigh, B2,
-    the `push` flag, C only when a lane pushes, D; each segment gets the
-    results of the ones before it."""
-    calls, reads = [], []
+    both walk: A, R under the device predicate "a lane lost its pose", B1,
+    eigh, B2, C under "a lane pushes", D; each segment gets the results of
+    the ones before it. The predicates come in as tensors and the schedule
+    itself reads nothing: what a branch does with its predicate is the
+    caller's (`eager_branch` reads it; the runner makes an IF node of it)."""
+    calls, branches = [], []
 
     def seg(name, result):
         def run(*args):
@@ -288,9 +297,12 @@ def test_the_step_schedule(lost, push):
             return result
         return run
 
-    def read(flag, t):
-        reads.append(flag)
-        return t.tolist()
+    def branch(name, pred, run, skipped):
+        # The runner's way: the predicate is a device tensor over all lanes,
+        # handed on as it is (here the device's part is played by reading it).
+        assert torch.is_tensor(pred) and pred.dtype == torch.bool and pred.ndim == 0
+        branches.append((name, bool(pred)))
+        return run() if bool(pred) else skipped
 
     tracked = SimpleNamespace(pose_ok=torch.tensor([True, not lost]))
     mapped = SimpleNamespace(push=torch.tensor([False, push]))
@@ -298,20 +310,118 @@ def test_the_step_schedule(lost, push):
         track=seg("A", tracked), recover=seg("R", "a'"), locate=seg("B1", "g"),
         eigh=seg("eigh", "v"), map=seg("B2", mapped), keyframe=seg("C", "b'"),
         finish=seg("D", "out"))
-    assert tpipe.run_step(segments, read, CFG) == "out"
+    assert tpipe.run_step(segments, branch, CFG) == "out"
     a = "a'" if lost else tracked
     b = "b'" if push else mapped
-    want = [("A", ())] + [("R", (tracked, [False, True]))] * lost + [
+    want = [("A", ())] + [("R", (tracked,))] * lost + [
         ("B1", (a,)), ("eigh", ("g",)), ("B2", (a, "g", "v"))] + [
         ("C", (a, mapped))] * push + [("D", (a, b))]
-    assert calls == want and reads == ["lost", "push"]
-    # Without recovery and BA neither flag is read, and R and C never run.
+    assert calls == want and branches == [("R", lost), ("C", push)]
+    # The eager step's branch gives the same calls.
     calls.clear()
-    reads.clear()
+    assert tpipe.run_step(segments, tpipe.eager_branch, CFG) == "out" and calls == want
+    # Without recovery and BA there is no branch, and R and C never run.
+    calls.clear()
+    branches.clear()
     off = VOConfig(capacity=CAPACITY, ba=BAConfig(enabled=False),
                    recovery=dataclasses.replace(CFG.recovery, enabled=False))
-    tpipe.run_step(segments, read, off)
-    assert [c[0] for c in calls] == ["A", "B1", "eigh", "B2", "D"] and reads == []
+    tpipe.run_step(segments, branch, off)
+    assert [c[0] for c in calls] == ["A", "B1", "eigh", "B2", "D"] and branches == []
+
+
+def test_a_lane_lost_on_some_frames_of_the_chunk(city, monkeypatch):
+    """Three lanes; the third sees noise on frames 5-8 only, so R runs on
+    some frames of the chunk and not on others, and a frame without R must
+    find A's fallback pose as A wrote it. The runner equals the eager
+    rollout in every StepOutput field, the final state and the generators,
+    and the frames on which R ran, counted on the device, are the eager
+    step's."""
+    frames, K = city
+    state, images, Ks = _lanes(frames, K, noise=slice(5, 9))
+    rewind = tpipe.rewinder(state)
+    taken = []
+
+    def counting(name, pred, run, skipped):
+        taken.append((name, bool(pred)))
+        return tpipe_branch(name, pred, run, skipped)
+
+    tpipe_branch = tpipe.eager_branch
+    monkeypatch.setattr(tpipe, "eager_branch", counting)
+    final_e, eager = tmulti.batched_vo_rollout(state, images, Ks, CFG)
+    monkeypatch.setattr(tpipe, "eager_branch", tpipe_branch)
+    after = [g.get_state() for g in _gens(state)]
+    rewind()
+    (final_g, got), runner = _captured(state, images, Ks)
+    for name, a, b in zip(eager._fields, eager, got):
+        assert torch.equal(a, b), name
+    for a, b in zip(graphed._leaves(final_e), graphed._leaves(final_g)):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, g.get_state()) for a, g in zip(after, _gens(state)))
+    lost = [ran for name, ran in taken if name == "R"]
+    assert any(lost) and not all(lost)  # the lost pattern changes inside the chunk
+    assert runner.stats.recoveries == sum(lost)
+    assert runner.stats.keyframes == sum(ran for name, ran in taken if name == "C")
+    assert not bool(got.pose_ok[2:6, 2].any()) and bool(got.pose_ok[-3:, 2].all())
+
+
+def test_a_captured_rollout_reads_nothing(city, monkeypatch):
+    """Over N frames the runner never takes the eager branch (which reads
+    its predicate on the host), and counts no host sync."""
+    frames, K = city
+    state, images, Ks = _lanes(frames, K)
+
+    def read(*args):
+        raise AssertionError("the captured rollout read a predicate on the host")
+
+    monkeypatch.setattr(tpipe, "eager_branch", read)
+    (_, got), runner = _captured(state, images, Ks)
+    assert got.pose.shape[0] == images.shape[0] == runner.stats.frames
+    assert runner.stats.syncs == 0 and runner.stats.recoveries == images.shape[0]
+
+
+def test_the_warm_up_gives_r_and_c_their_slots(city, monkeypatch):
+    """No lane of the scratch state is lost, yet the warm-up runs R and C
+    once each (outside capture), so both have their results' slots before
+    the frame's graph is captured: A's (R rewrites its fallback pose), B2's
+    (C rewrites it) and the step's outputs."""
+    frames, K = city
+    ran = []
+    for name in ("step_recover", "step_keyframe"):
+        real = getattr(graphed, name)
+
+        def wrapped(*args, real=real, name=name):
+            ran.append(name)
+            return real(*args)
+
+        monkeypatch.setattr(graphed, name, wrapped)
+    state = _boot(frames, K, 2023)
+    runner = graphed.GraphedRollout(CFG, tmulti.stack_states([state]), frames[3:4],
+                                    K.reshape(1, 3, 3), graphed.StandIn())
+    # The warm-up ran each branch once, first; the stand-in's captures run
+    # Python again after it.
+    assert ran[:2] == ["step_recover", "step_keyframe"]
+    assert set(runner._slots) == {"A", "B2", "out"}
+    slot_fb = runner._slots["A"].pose_fb
+    assert runner.a.pose_fb is slot_fb and set(runner.branches) == {"R", "C"}
+    assert runner.stats.recoveries == 0 and runner.stats.keyframes == 0
+
+
+def test_a_runner_per_branch_shape(city):
+    """What decides the frame graph's shape is in the runner's key: the
+    recovery off (no IF node for R) and BA off (none for C) are runners of
+    their own."""
+    frames, K = city
+    cache = RunnerCache()
+    shapes = {}
+    for rec in (True, False):
+        for ba in (True, False):
+            cfg = VOConfig(capacity=CAPACITY, ba=BAConfig(enabled=ba),
+                           recovery=dataclasses.replace(CFG.recovery, enabled=rec))
+            _, runner = _captured(_boot(frames, K, 2023, cfg), frames[3:4], K, cfg, cache)
+            shapes[(rec, ba)] = set(runner.branches)
+    assert cache.captures == len(cache) == 4
+    assert shapes == {(True, True): {"R", "C"}, (True, False): {"R"},
+                      (False, True): {"C"}, (False, False): set()}
 
 
 def test_check_recorded_holds_counts_to_the_graph():

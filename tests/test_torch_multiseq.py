@@ -696,11 +696,12 @@ def test_one_batched_step_from_a_jax_state(frame):
     imgs = np.stack([f[frame] for f in lanes])
     jst, want = jmulti.batched_vo_step(prev, jnp.asarray(imgs), Ks, jcfg)
 
-    samplers = []
+    samplers, rec_samplers = [], []
     for b in range(2):
         _, k_pnp, k_rec = jax.random.split(prev.rng[b], 3)
-        samplers.append(_replay([k_pnp, k_rec]))
-    st = tpipe.state_from_numpy(prev, "cpu", samplers)
+        samplers.append(_replay([k_pnp]))
+        rec_samplers.append(_replay([k_rec]))
+    st = tpipe.state_from_numpy(prev, "cpu", samplers, rec_samplers)
     assert st.table.xy.shape == (2, CAP2, 2) and st.pose.shape == (2, 4, 4)
     st, out = tmulti.batched_vo_step(st, T(imgs), T(np.asarray(Ks)), cfg)
 
@@ -777,32 +778,71 @@ class _CountingSampler:
 
 def test_a_failing_lane_leaves_its_neighbour_alone():
     """Lane 1 sees unrelated noise after the bootstrap, so its PnP fails and
-    the recovery RANSAC runs; lane 0 is healthy. Lane 0 must draw exactly
-    what it draws alone (one PnP draw a step, no recovery draw) and give
-    exactly the result of its single rollout."""
+    the recovery RANSAC runs; lane 0 is healthy. A lane's PnP sampler is
+    asked for one PnP draw a step and nothing else: the recovery draws from
+    the lane's own recovery stream, every step, lost or not. So lane 0
+    draws exactly what it draws alone, ends both streams where its single
+    run leaves them and gives exactly its single rollout; and lane 1, R on
+    every frame, gives exactly ITS single rollout too."""
     cfg = small_cfg()
     good = noise_frames(0, 7)
     lost = noise_frames(0, 7)
     lost[3:] = np.random.default_rng(99).uniform(0, 255, lost[3:].shape)
-    n_pnp, n_rec = cfg.pnp.num_hypotheses, cfg.recovery.num_hypotheses
+    n_pnp = cfg.pnp.num_hypotheses
+
+    def run(frames, pnp, rec_seed, batch=None):
+        rec = torch.Generator().manual_seed(rec_seed)
+        st = _bootstrap(frames, 7)._replace(rng=pnp, rec_rng=rec)
+        if batch is not None:
+            return st
+        _, outs = tpipe.vo_rollout(st, T(frames[3:]), T(K_SMALL), cfg)
+        return outs, rec
 
     alone = _CountingSampler(5)
-    st = _bootstrap(good, 7)._replace(rng=alone)
-    _, single = tpipe.vo_rollout(st, T(good[3:]), T(K_SMALL), cfg)
+    single, rec_alone = run(good, alone, 15)
     assert bool(single.pose_ok.all())
     assert alone.calls == [(n_pnp, 4)] * 4
+    lost_alone = _CountingSampler(6)
+    single_lost, rec_lost_alone = run(lost, lost_alone, 16)
+    assert not bool(single_lost.pose_ok.any())
 
     healthy, failing = _CountingSampler(5), _CountingSampler(6)
-    states = tmulti.stack_states([_bootstrap(good, 7)._replace(rng=healthy),
-                                  _bootstrap(lost, 7)._replace(rng=failing)])
+    states = tmulti.stack_states([run(good, healthy, 15, batch=True),
+                                  run(lost, failing, 16, batch=True)])
     Ks = T(K_SMALL).expand(2, 3, 3).contiguous()
     _, outs = tmulti.batched_vo_rollout(states, T(np.stack([good, lost], axis=1)[3:]), Ks, cfg)
     assert not bool(outs.pose_ok[:, 1].any())  # the neighbour really failed
-    assert failing.calls == [(n_pnp, 4), (n_rec, 8)] * 4  # PnP, then its recovery
+    assert failing.calls == [(n_pnp, 4)] * 4  # PnP only: R draws from its own stream
     assert healthy.calls == alone.calls  # no draw was added to the healthy lane
-    np.testing.assert_array_equal(N(outs.pose[:, 0]), N(single.pose))
-    np.testing.assert_array_equal(N(outs.num_triangulated[:, 0]), N(single.num_triangulated))
+    for lane, rec in zip(states.rec_rng, (rec_alone, rec_lost_alone)):
+        assert torch.equal(lane.get_state(), rec.get_state())
+    for b, want in enumerate((single, single_lost)):
+        for name, x, y in zip(want._fields, outs, want):
+            np.testing.assert_array_equal(N(x[:, b]), N(y), err_msg=name)
     assert bool(torch.isfinite(outs.pose).all()) and not bool(outs.frozen.any())
+
+
+def test_recovery_frames_leave_the_pnp_stream_where_it_was():
+    """A lane lost on every frame: its PnP generator ends where one PnP draw
+    a step leaves it (as on a healthy lane), and its recovery generator
+    where one recovery draw a step leaves it, R or no R."""
+    cfg = small_cfg()
+    lost = noise_frames(0, 7)
+    lost[3:] = np.random.default_rng(99).uniform(0, 255, lost[3:].shape)
+    st = _bootstrap(lost, 7)
+    pnp_at, rec_at = st.rng.get_state(), st.rec_rng.get_state()
+    _, outs = tpipe.vo_rollout(st, T(lost[3:]), T(K_SMALL), cfg)
+    assert not bool(outs.pose_ok.any())
+    steps = outs.pose.shape[0]
+    pnp, rec = torch.Generator(), torch.Generator()
+    pnp.set_state(pnp_at)
+    rec.set_state(rec_at)
+    for _ in range(steps):
+        transac.draw_uniforms(pnp, transac.drawn_hypotheses(tpnp.pnp_budget(cfg.pnp.num_hypotheses)),
+                              cfg.capacity)
+        transac.draw_uniforms(rec, *tpipe.recovery_shape(cfg))
+    assert torch.equal(pnp.get_state(), st.rng.get_state())
+    assert torch.equal(rec.get_state(), st.rec_rng.get_state())
 
 
 # ---------------------------------------------------------------------------
@@ -872,7 +912,8 @@ def test_run_multiseq_torch_on_cpu_small(monkeypatch, capsys):
     assert rc == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     report = lines[-1]
-    assert set(report) == {"metric", "lanes", "batch", "steps", "agg_fps", "executor", "device"}
+    assert set(report) == {"metric", "lanes", "batch", "steps", "agg_fps", "executor", "graphs",
+                           "device"}
     assert report["executor"] == "eager"  # the CPU runs eagerly
     assert report["metric"] == "multiseq_full" and report["batch"] == 2
     assert report["steps"] == 5 and report["device"] == "cpu" and report["agg_fps"] > 0

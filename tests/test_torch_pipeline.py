@@ -154,7 +154,7 @@ def test_one_step_from_a_jax_state(dot_world, jax_run, frame, adaptive):
         prev = prev._replace(kf_adaptive=jnp.asarray(True),
                              last_kf_idx=jnp.asarray(frame - 11, jnp.int32))
     _, k_pnp, k_rec = jax.random.split(prev.rng, 3)
-    st = tpipe.state_from_numpy(prev, "cpu", _replay([k_pnp, k_rec]))
+    st = tpipe.state_from_numpy(prev, "cpu", _replay([k_pnp]), _replay([k_rec]))
     st, out = tpipe.vo_step(st, torch.from_numpy(imgs[frame]), torch.from_numpy(K_DOTS),
                             VOConfig(capacity=CAPACITY))
     if adaptive:
@@ -180,6 +180,39 @@ def test_one_step_from_a_jax_state(dot_world, jax_run, frame, adaptive):
     np.testing.assert_allclose(N(st.table.landmark)[tri], N(jst.table.landmark)[tri],
                                rtol=1e-3, atol=1e-3)
     np.testing.assert_array_equal(N(st.window.kf_valid), N(jst.window.kf_valid))
+
+
+def test_the_recovery_from_a_jax_state():
+    """Frame 3 of the city at 160x120 with PnP's bar out of reach, so that
+    both packages fall back to the recovery (8-point RANSAC -> E ->
+    cheirality) and take it. The port's recovery draws from its own stream,
+    here the JAX step's `k_rec` replayed (PnP from its sibling `k_pnp`):
+    the JAX package's pose at the tolerances of
+    test_one_step_from_a_jax_state. (On the dot world the 8-point refit is
+    too ill-conditioned for those tolerances: F moves by 0.08 between the
+    two LAPACKs on the same tracks.)"""
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, width=160, height=120, focal=104.0)
+    seq = tsyn.render_sequence(spec, "cpu", 4)
+    imgs, K = N(seq.frames), N(seq.K)
+    jcfg = JaxConfig(capacity=128)
+    jcfg = dataclasses.replace(jcfg, pnp=dataclasses.replace(jcfg.pnp, min_inliers=10**6))
+    cfg = VOConfig(capacity=128)
+    cfg = dataclasses.replace(cfg, pnp=dataclasses.replace(cfg.pnp, min_inliers=10**6))
+    prev, _ = jpipe.bootstrap(jnp.asarray(imgs[0]), jnp.asarray(imgs[2]), jnp.asarray(K),
+                              jcfg, jax.random.PRNGKey(1))
+    jst, want = jpipe.vo_step(prev, jnp.asarray(imgs[3]), jnp.asarray(K), jcfg)
+    _, k_pnp, k_rec = jax.random.split(prev.rng, 3)
+    st = tpipe.state_from_numpy(prev, "cpu", _replay([k_pnp]), _replay([k_rec]))
+    st, out = tpipe.vo_step(st, torch.from_numpy(imgs[3]), torch.from_numpy(K), cfg)
+    assert not bool(out.pose_ok) and not bool(want.pose_ok)
+    # The recovery ran and was taken: the pose is not the constant-velocity
+    # guess's.
+    cv = N(prev.pose) @ (np.linalg.inv(N(prev.prev_pose)) @ N(prev.pose))
+    assert np.abs(N(want.pose) - cv).max() > 0.1
+    np.testing.assert_allclose(N(out.pose), N(want.pose), atol=1e-4)
+    assert int(out.num_tracked) == int(want.num_tracked)
+    np.testing.assert_array_equal(N(st.table.state), N(jst.table.state))
+    np.testing.assert_array_equal(N(st.table.uid), N(jst.table.uid))
 
 
 def test_state_numpy_roundtrip(jax_run):

@@ -124,7 +124,7 @@ def run_scenario(K, imgs, img0, img2, gt, dev, configs: dict) -> list:
     import numpy as np
     import torch
 
-    from vo_tpu_torch.models.pipeline import bootstrap
+    from vo_tpu_torch.models.pipeline import bootstrap, rewinder
 
     pos = gt[2:3 + imgs.shape[0], :3, 3]
     stopped = (pos[1:] == pos[:-1]).all(axis=1)
@@ -132,9 +132,9 @@ def run_scenario(K, imgs, img0, img2, gt, dev, configs: dict) -> list:
     def measure(name, cfg):
         def trial():
             st, out = bootstrap(img0, img2, K, cfg, bench_torch.seeded(dev))
-            saved = st.rng.get_state()
+            rewind = rewinder(st)
             roll(st, imgs, K, cfg)  # warm-up
-            st.rng.set_state(saved)
+            rewind()
             bench_torch.sync(dev)
             t0 = time.perf_counter()
             outs, kf = roll(st, imgs, K, cfg)

@@ -116,7 +116,7 @@ def profile(frames, K, dev, reps: int = 3) -> list[dict]:
 
     from vo_tpu_torch.models.ba import ba_refine
     from vo_tpu_torch.models.feature_table import STATE_TRIANGULATED
-    from vo_tpu_torch.models.pipeline import bootstrap, vo_rollout, vo_step
+    from vo_tpu_torch.models.pipeline import bootstrap, rewinder, vo_rollout, vo_step
     from vo_tpu_torch.ops import kernels
     from vo_tpu_torch.ops.descriptors import match_descriptors
     from vo_tpu_torch.ops.harris import select_from_masked
@@ -196,9 +196,9 @@ def profile(frames, K, dev, reps: int = 3) -> list[dict]:
         if dev.type == "cuda":
             # The device time of the first PROFILED_STEPS steps (half of
             # them BA frames) from the same state and draws.
-            saved = state.rng.get_state()
+            rewind = rewinder(state)
             d_ms, n = device_busy(lambda: vo_rollout(state, stack[:PROFILED_STEPS], K, c), dev)
-            state.rng.set_state(saved)
+            rewind()
             row.update(device_ms=d_ms / PROFILED_STEPS, kernels=n / PROFILED_STEPS,
                        device_idle_share=1.0 - (d_ms / PROFILED_STEPS) / row["host_ms"])
         rows.append(row)

@@ -5,8 +5,8 @@ the twin of the JAX package's tools/repro_headline.py.
 Runs bench_torch.py's headline program (the city under
 <data-root>/synthetic, capacity 1024, bootstrap on frames 0 and 2 with seed
 2023, one `vo_rollout` over the rest, timed on the host clock with one
-synchronize at the end; on the card it replays the step's CUDA graphs,
-captured before the clock starts) with the LK patch-gather kernel (K2) on and off, and
+synchronize at the end; on the card it replays the step's CUDA graph,
+one a frame, captured before the clock starts) with the LK patch-gather kernel (K2) on and off, and
 with `--also-detect` the corner kernel (K1) off too, through the
 `use_pallas` fields the port keeps for its CUDA kernels (None: the kernel on
 a CUDA tensor; False: the plain PyTorch version), as `run_vo_torch.py

@@ -1,38 +1,49 @@
-"""The captured rollout: `vo_step`'s segments captured once as CUDA graphs
-and replayed frame by frame — the port's counterpart of the reference's
-jit-compiled `vo_rollout` (a `lax.scan` over `vo_step`) and, through
-utils/cache.py, of its compile cache.
+"""The captured rollout: `vo_step` captured once as ONE CUDA graph a frame
+and replayed frame by frame, with no host read between the first frame and
+the caller's fetch — the port's counterpart of the reference's jit-compiled
+`vo_rollout` (a `lax.scan` over `vo_step`, its two `lax.cond`s decided on
+the device) and, through utils/cache.py, of its compile cache.
 
-A frame runs the segments of models/pipeline.py in the order that
-`pipeline.run_step` (the one schedule, which `vo_step` runs too) gives:
+A frame is
 
-    draw, A, [lost? R], B1, eigh, B2, [push? C], D
+    draw, replay the frame's graph, copy the outputs
 
-- draw: the PnP uniforms of every lane, from the lane's torch.Generator,
-  into a static buffer: the eager step's `torch.rand` call, same shape,
-  same order (ops/ransac.py `draw_uniforms`); the clamp, Gumbel noise and
-  top-k run inside A (`Drawn`).
-- A, B1, B2, C, D: CUDA graphs, all in one memory pool.
-- lost?, push?: the step's two host flags (one copy into pinned memory and
-  one event sync each), where the reference has its two `lax.cond`s. R
-  (the recovery, which draws) runs eagerly when a lane lost its pose; C
-  (keyframe push and BA) replays when a lane pushes.
-- eigh: the DLT's eigenvectors, eagerly between B1 and B2:
-  `torch.linalg.eigh` reads its error flag on the host, which no graph can
-  hold.
+- draw: every lane's PnP uniforms and, with the recovery on, its recovery
+  uniforms, each from the lane's own torch.Generator into a static buffer:
+  the eager step's `torch.rand` calls, same shapes, same order
+  (ops/ransac.py `draw_uniforms`, pipeline.py `recovery_samplers`); the
+  clamp, Gumbel noise and top-k run inside the graph (`Drawn`). A draw
+  inside the graph would advance its generator at every replay, taken
+  branch or not; outside it, the streams advance as the eager step's do.
+- the frame's graph: the step's one schedule (pipeline.run_step) captured
+  once, A, [R], B1, eigh, B2, [C], D, where R (the recovery) and C (the
+  keyframe push and BA) are IF conditional nodes (csrc/graph_cond.cu) on
+  predicates the graph computes: "a lane lost its pose" and "a lane pushes
+  a keyframe". Their bodies are R's and C's own graphs, captured before the
+  frame's, each in a memory pool of its own. The DLT's eigh and R's eighs
+  and SVDs are the cuSOLVER routines torch.linalg runs, with their error
+  flags left on the device (ops/cusolver.py).
+- The graph also adds each predicate to a device counter: the frames on
+  which R and C ran are counted on the device and read when asked for
+  (`RunnerStats.recoveries`, `.keyframes`), after the chunk.
 
 The results are the eager step's bit for bit: the same ops in the same
-order on the same values.
+order on the same values, and a branch that does not run leaves its
+results as they stand, as the eager step's skipped branch does.
 
 Static buffers and the hazards they bring:
 - The runner holds a static state (the batched shape, B lanes; one
   sequence is a batch of one, as in `vo_step`), a static frame, K and the
   uniforms, all allocated outside capture. A warm-up on a scratch copy of
-  the state gives every segment's results static buffers ("slots") of
-  their own; from then on a segment, captured or eager, copies its results
-  into them. A result that is an input passed through (a buffer that
-  exists already) is copied, never aliased, so no later write reaches
-  an earlier segment's input.
+  the state runs the whole schedule with BOTH branches taken: it gives
+  every result that crosses a graph's boundary a static buffer ("slot") —
+  A's (which R reads and whose fallback pose R rewrites), B2's (which C
+  reads and rewrites) and the step's outputs — and makes every lazy
+  initialisation (cuSOLVER's handle and workspaces, the kernels' library)
+  happen outside capture. From then on a segment, captured or not, copies
+  its results into its slots, so a branch that does not run leaves the
+  slots as A and B2 wrote them. A result that is an input passed through
+  is copied, never aliased, so no later write reaches an earlier input.
 - D writes the new state into the static state last, after every segment
   has read the old one, and clones first each new leaf that is still an
   old one (the new `prev_pose` is the old `pose`).
@@ -42,18 +53,22 @@ Static buffers and the hazards they bring:
   for the rollout, copied into after every frame, and fetched once.
 - The kernel wrappers count launches when Python calls them, that is at
   capture. The runner captures (and warms up) with counting suspended
-  (`kernels.uncounted`), keeps what each graph launched, and adds that at
-  every replay: launch counts are the eager path's. On the card each
-  count is held against the graph itself at capture: the graph must hold
-  one node of the kernel for every launch counted (`check_recorded`), or
-  the capture raises. (chip_smoke.py also counts the kernels of traced
-  replays.)
+  (`kernels.uncounted`), keeps what the frame's graph launched, and adds
+  that at every replay: launch counts are the eager path's. The kernels of
+  ops/kernels.py launch outside the conditional bodies (a body that would
+  launch one is refused: its launches could not be counted without a
+  read). On the card the count is held against the graph itself at
+  capture: it must hold one node of each kernel for every launch counted,
+  and its bodies none (`check_recorded`), or the capture raises.
+- A host sync during the chunk's frames is counted (torch's sync debug
+  mode, `RunnerStats.syncs`): there is none to count.
 
 The capture mechanism is injectable. `CudaGraphs` captures on the card.
 `StandIn` is its CPU twin for the tests: "capture" runs a segment once and
 keeps it, "replay" runs it again on the same static buffers with counting
-suspended, as a graph's replay runs no Python. Everything else above (the
-slots, the copies, the flags, the draws, the counts) is the same code.
+suspended, as a graph's replay runs no Python, and an IF node evaluates its
+predicate itself, as the device does. Everything else above (the slots,
+the copies, the draws, the counts) is the same code.
 """
 
 from __future__ import annotations
@@ -62,7 +77,8 @@ import contextlib
 import ctypes
 import dataclasses
 import time
-from typing import Callable, NamedTuple
+import warnings
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -72,6 +88,7 @@ from vo_tpu_torch.models.pipeline import (
     StepOutput,
     VOState,
     map_state,
+    recovery_shape,
     run_step,
     step_eigh,
     step_finish,
@@ -87,11 +104,7 @@ from vo_tpu_torch.ops.ransac import Drawn, draw_uniforms, drawn_hypotheses, is_l
 from vo_tpu_torch.utils.cache import RUNNERS, RunnerCache, runner_key
 from vo_tpu_torch.utils.config import VOConfig
 
-# The eager runs between graphs, in step order.
-BOUNDARIES = (
-    "R: the recovery (fundamental RANSAC, SVDs), only on frames where a lane lost its pose",
-    "eigh: the DLT's torch.linalg.eigh between B1 and B2 (it reads its error flag)",
-)
+BRANCHES = ("R", "C")  # the conditional nodes, in step order
 
 
 # ---------------------------------------------------------------------------
@@ -153,52 +166,8 @@ def _copy_into(dst_tree, src_tree) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Capture mechanisms
+# What a CUDA graph holds, read through libcuda
 # ---------------------------------------------------------------------------
-
-class CudaGraphs:
-    """torch.cuda.CUDAGraph capture, every graph in one memory pool, the
-    warm-up on a side stream (torch's rule for capture), the capture in
-    "thread_local" mode (another thread's CUDA calls, NCCL's watchdog
-    among them, cannot invalidate it)."""
-
-    reruns_python = False
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.pool = torch.cuda.graph_pool_handle()
-        self.side = torch.cuda.Stream(device)
-        self.event = torch.cuda.Event()
-        self._pinned: dict = {}
-
-    @contextlib.contextmanager
-    def warming_up(self):
-        self.side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.side):
-            yield
-        torch.cuda.current_stream(self.device).wait_stream(self.side)
-
-    def capture(self, fn: Callable[[], None]) -> tuple[Callable[[], None], tuple | None]:
-        """(replay, `graph_nodes` of the graph). The graph is kept past
-        capture to read its nodes, so it is instantiated here."""
-        g = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(g, pool=self.pool, capture_error_mode="thread_local"):
-            fn()
-        g.instantiate()
-        return g.replay, graph_nodes(int(g.raw_cuda_graph()))
-
-    def read(self, t: torch.Tensor) -> list:
-        """A small tensor on the host: one copy into pinned memory, one
-        event sync."""
-        host = self._pinned.get((t.shape, t.dtype))
-        if host is None:
-            host = self._pinned[(t.shape, t.dtype)] = torch.empty(
-                t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        self.event.record()
-        self.event.synchronize()
-        return host.tolist()
-
 
 class _KernelNodeParams(ctypes.Structure):
     """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h (libcuda)."""
@@ -209,12 +178,30 @@ class _KernelNodeParams(ctypes.Structure):
                 ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
 
 
-def graph_nodes(graph: int) -> tuple[int, list]:
-    """(the node count of a CUDA graph (a CUgraph handle), the function
-    names of its kernel nodes, one per node), read through libcuda:
-    cuGraphGetNodes, cuGraphNodeGetType, cuGraphKernelNodeGetParams and
-    cuFuncGetName (or cuKernelGetName for a node that holds a CUkernel). A
-    failed call raises."""
+_KERNEL, _CHILD_GRAPH, _CONDITIONAL = 0, 4, 13  # CUgraphNodeType
+
+
+class GraphNodes(NamedTuple):
+    """What a CUDA graph holds, its conditional bodies and child graphs
+    included: every node, the function names of the kernel nodes outside
+    any conditional body and inside one, and the conditional nodes."""
+
+    nodes: int
+    kernels: list
+    body_kernels: list
+    conditionals: int
+
+
+def graph_nodes(graph: int, bodies: dict | None = None) -> GraphNodes:
+    """The nodes of a CUDA graph (a CUgraph handle), read through libcuda:
+    cuGraphGetNodes and cuGraphNodeGetType; a kernel node's function name
+    through cuGraphKernelNodeGetParams and cuFuncGetName (or cuKernelGetName
+    for a node that holds a CUkernel); a child graph node's graph through
+    cuGraphChildGraphNodeGetGraph, walked in turn; a conditional node's body
+    graphs from `bodies` (node handle -> its bodies, as csrc/graph_cond.cu
+    handed them out: libcuda 580 cannot read them back), walked in
+    turn. A failed call, or a conditional node of unknown bodies, raises."""
+    bodies = bodies or {}
     cu = ctypes.CDLL("libcuda.so.1")
 
     def call(fn: str, *args) -> None:
@@ -222,23 +209,40 @@ def graph_nodes(graph: int) -> tuple[int, list]:
         if err != 0:
             raise RuntimeError(f"{fn} failed with CUresult {err}")
 
-    n = ctypes.c_size_t(0)
-    call("cuGraphGetNodes", ctypes.c_void_p(graph), None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * n.value)()
-    call("cuGraphGetNodes", ctypes.c_void_p(graph), nodes, ctypes.byref(n))
-    names = []
-    kind, params, name = ctypes.c_int(), _KernelNodeParams(), ctypes.c_char_p()
-    for node in nodes:
-        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
-        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
-            continue
-        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(params))
-        if params.func:
-            call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params.func))
-        else:
-            call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
-        names.append(name.value.decode())
-    return n.value, names
+    found = GraphNodes(0, [], [], 0)
+
+    def walk(g, in_body: bool) -> None:
+        nonlocal found
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", ctypes.c_void_p(g), None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call("cuGraphGetNodes", ctypes.c_void_p(g), nodes, ctypes.byref(n))
+        found = found._replace(nodes=found.nodes + n.value)
+        kind = ctypes.c_int()
+        for node in nodes:
+            call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+            if kind.value == _KERNEL:
+                params, name = _KernelNodeParams(), ctypes.c_char_p()
+                call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+                     ctypes.byref(params))
+                if params.func:
+                    call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params.func))
+                else:
+                    call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
+                (found.body_kernels if in_body else found.kernels).append(name.value.decode())
+            elif kind.value == _CHILD_GRAPH:
+                child = ctypes.c_void_p()
+                call("cuGraphChildGraphNodeGetGraph", ctypes.c_void_p(node), ctypes.byref(child))
+                walk(child.value, in_body)
+            elif kind.value == _CONDITIONAL:
+                if node not in bodies:
+                    raise RuntimeError(f"conditional node {node:#x} of unknown bodies")
+                found = found._replace(conditionals=found.conditionals + 1)
+                for body in bodies[node]:
+                    walk(body, True)
+
+    walk(graph, False)
+    return found
 
 
 def check_recorded(segment: str, launches: dict, kernel_names: list) -> None:
@@ -254,10 +258,94 @@ def check_recorded(segment: str, launches: dict, kernel_names: list) -> None:
                                f"counted {counted} launches")
 
 
+# ---------------------------------------------------------------------------
+# Capture mechanisms
+# ---------------------------------------------------------------------------
+
+class Captured(NamedTuple):
+    replay: Callable[[], None] | None  # None for a branch: it runs inside an IF node
+    graph: Any  # the torch.cuda.CUDAGraph (None for the stand-in)
+    nodes: GraphNodes | None  # None where not read
+
+
+class CudaGraphs:
+    """torch.cuda.CUDAGraph capture: the frame's graph in one memory pool,
+    each branch's in a pool of its own; the warm-up on a side stream
+    (torch's rule for capture); the capture in "thread_local" mode (another
+    thread's CUDA calls, NCCL's watchdog among them, cannot invalidate
+    it)."""
+
+    reruns_python = False
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.side = torch.cuda.Stream(device)
+        self.bodies: dict = {}  # IF node -> its body graphs (`graph_nodes`)
+
+    @contextlib.contextmanager
+    def warming_up(self):
+        self.side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.side):
+            yield
+        torch.cuda.current_stream(self.device).wait_stream(self.side)
+
+    def capture(self, fn: Callable[[], None], branch: bool = False) -> Captured:
+        """The graph of `fn`, kept past capture to read its nodes. A branch's
+        graph is never instantiated: `if_node` clones it into the body of an
+        IF node of the frame's graph."""
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        pool = torch.cuda.graph_pool_handle() if branch else self.pool
+        with torch.cuda.graph(g, pool=pool, capture_error_mode="thread_local"):
+            fn()
+        nodes = graph_nodes(int(g.raw_cuda_graph()), self.bodies)
+        if branch:
+            return Captured(None, g, nodes)
+        g.instantiate()
+        return Captured(g.replay, g, nodes)
+
+    def if_node(self, pred: torch.Tensor, branch: Captured) -> None:
+        """Inside a capture: an IF node that runs `branch` where the device
+        bool `pred` is true (csrc/graph_cond.cu)."""
+        if not (pred.is_cuda and pred.dtype == torch.bool and pred.numel() == 1):
+            raise ValueError(f"an IF node needs one CUDA bool, got {pred.dtype} "
+                             f"{tuple(pred.shape)} on {pred.device}")
+        from vo_tpu_torch.ops._build import library
+
+        node, body = ctypes.c_void_p(), ctypes.c_void_p()
+        err = library().vo_graph_if_node(
+            ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream),
+            ctypes.c_void_p(pred.data_ptr()), ctypes.c_void_p(int(branch.graph.raw_cuda_graph())),
+            ctypes.byref(node), ctypes.byref(body))
+        if err != 0:
+            raise RuntimeError(f"vo_graph_if_node failed with {err} (-1: the stream is not "
+                               "capturing; else a cudaError_t)")
+        self.bodies[node.value] = [body.value]
+
+    def count_syncs(self, fn: Callable[[], None]) -> int:
+        """fn() under torch's sync debug mode: the host syncs torch reported."""
+        before = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(before)
+        syncs = 0
+        for w in caught:
+            if "synchronizing CUDA operation" in str(w.message):
+                syncs += 1
+            else:
+                warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+        return syncs
+
+
 class StandIn:
     """The CPU twin of `CudaGraphs`: capture runs the segment once and keeps
     it; replay runs it again on the same static buffers, with launch
-    counting suspended as in a graph's replay."""
+    counting suspended as in a graph's replay; an IF node evaluates its
+    predicate itself and runs the branch, as the device does."""
 
     reruns_python = True
 
@@ -265,17 +353,22 @@ class StandIn:
     def warming_up(self):
         yield
 
-    def capture(self, fn: Callable[[], None]) -> tuple[Callable[[], None], None]:
+    def capture(self, fn: Callable[[], None], branch: bool = False) -> Captured:
         fn()
 
         def replay():
             with kernels.uncounted():
                 fn()
 
-        return replay, None
+        return Captured(replay, None, None)
 
-    def read(self, t: torch.Tensor) -> list:
-        return t.tolist()
+    def if_node(self, pred: torch.Tensor, branch: Captured) -> None:
+        if bool(pred):
+            branch.replay()
+
+    def count_syncs(self, fn: Callable[[], None]) -> int:
+        fn()
+        return 0
 
 
 # ---------------------------------------------------------------------------
@@ -285,18 +378,21 @@ class StandIn:
 @dataclasses.dataclass
 class RunnerStats:
     capture_s: float = 0.0  # warm-up and capture, host clock
-    graphs: dict = dataclasses.field(default_factory=dict)  # segment -> nodes
-    boundaries: tuple = BOUNDARIES
+    graphs: dict = dataclasses.field(default_factory=dict)  # "frame", "R", "C" -> nodes
+    conditionals: int | None = None  # IF nodes in the frame's graph (None: not read)
     frames: int = 0
-    syncs: int = 0  # host reads: the two flags and eigh's error check
-    recoveries: int = 0  # frames on which R ran
-    keyframes: int = 0  # frames on which C replayed
+    syncs: int = 0  # host syncs during the chunks' frames
+    taken: torch.Tensor | None = None  # (2,) frames on which R, C ran: device counts
 
+    @property
+    def recoveries(self) -> int:
+        """Frames on which R ran (a read of the device count)."""
+        return int(self.taken[0])
 
-class _Graph(NamedTuple):
-    replay: Callable[[], None]
-    nodes: int | None  # nodes of the CUDA graph (None where not counted)
-    launches: dict  # kernel launches the graph makes, by counter name
+    @property
+    def keyframes(self) -> int:
+        """Frames on which C ran (a read of the device count)."""
+        return int(self.taken[1])
 
 
 class GraphedRollout:
@@ -310,12 +406,13 @@ class GraphedRollout:
         self.capture = capture if capture is not None else (
             CudaGraphs(dev) if dev.type == "cuda" else StandIn())
         lanes = len(state.rng)
-        self.stats = RunnerStats()
+        self.stats = RunnerStats(taken=torch.zeros(len(BRANCHES), dtype=torch.int64,
+                                                   device=dev))
         t0 = time.perf_counter()
         # Static buffers, outside capture: the state (a scratch copy of the
         # first caller's until a rollout copies its own in), frame, K, the
-        # PnP uniforms and the lanes' samplers over them.
-        self.state = map_state(torch.clone, state, rng=None)
+        # uniforms and the lanes' samplers over them.
+        self.state = map_state(torch.clone, state, rng=None, rec_rng=None)
         self.image = frame.clone()
         self.K = K.clone()
         rows = drawn_hypotheses(pnp_budget(cfg.pnp.num_hypotheses))
@@ -323,33 +420,54 @@ class GraphedRollout:
                                     device=dev)
         self.drawn = [Drawn(u) for u in self.uniforms]
         self.samplers = list(self.drawn)
-        self._lanes: list = []  # the rollout's own samplers, which R draws from
+        self.rec_uniforms = torch.zeros((lanes,) + recovery_shape(cfg), dtype=torch.float32,
+                                        device=dev)
+        self.rec_drawn = [Drawn(u) for u in self.rec_uniforms]
+        self.rec_samplers = list(self.rec_drawn)
         self._slots: dict = {}
         self._taken = {_storage(t) for t in _leaves(
-            (self.state, self.image, self.K, self.uniforms))}
-        fns = {"A": self._a, "B1": self._b1, "B2": self._b2, "C": self._c, "D": self._d}
+            (self.state, self.image, self.K, self.uniforms, self.rec_uniforms,
+             self.stats.taken))}
+        branches = {"R": self._r, "C": self._c}
+        if not cfg.recovery.enabled:
+            del branches["R"]
         if not cfg.ba.enabled:  # without BA there is no keyframe decision and no C
-            del fns["C"]
+            del branches["C"]
         with kernels.uncounted():
             with self.capture.warming_up():
-                # One frame of the schedule that runs every captured segment
-                # (no lane lost, every lane pushes) and gives them their slots.
-                run_step(self._segments(lambda name: fns[name](), self._eigh),
-                         lambda flag, t: [True] * len(t), cfg)
-            self.graphs = {}
-            for name, fn in fns.items():
-                before = dict(kernels.launch_counts)
-                replay, nodes = self.capture.capture(fn)
-                launches = {k: v - before[k] for k, v in kernels.launch_counts.items()
-                            if v != before[k]}
-                if nodes is not None:  # a CUDA graph's (node count, kernel names)
-                    check_recorded(name, launches, nodes[1])
-                self.graphs[name] = _Graph(replay, None if nodes is None else nodes[0],
-                                           launches)
+                # One frame of the schedule with every branch taken: the
+                # slots, and every lazy initialisation, outside capture.
+                run_step(self._segments(), lambda name, pred, run, skipped: run(), cfg)
+            self.branches = {name: self._capture(name, fn, branch=True)
+                             for name, fn in branches.items()}
+            self.frame = self._capture("frame", lambda: run_step(
+                self._segments(), self._if_node, cfg))
+        self.stats.taken.zero_()  # the stand-in's capture ran the frame once
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.stats.capture_s = time.perf_counter() - t0
-        self.stats.graphs = {name: g.nodes for name, g in self.graphs.items()}
+        graphs = {"frame": self.frame, **self.branches}
+        self.stats.graphs = {name: None if g.nodes is None else g.nodes.nodes
+                             for name, g in graphs.items()}
+        if self.frame.nodes is not None:
+            self.stats.conditionals = self.frame.nodes.conditionals
+
+    def _capture(self, name: str, fn: Callable[[], Any], branch: bool = False) -> Captured:
+        """Capture `fn` as graph `name`; a frame's graph keeps its launches
+        (added at every replay), a branch must launch no counted kernel."""
+        before = dict(kernels.launch_counts)
+        captured = self.capture.capture(fn, branch)
+        launches = {k: v - before[k] for k, v in kernels.launch_counts.items()
+                    if v != before[k]}
+        if branch and launches:
+            raise RuntimeError(f"branch {name} launches {launches}: a conditional body's "
+                               "launches cannot be counted without a host read")
+        if captured.nodes is not None:
+            check_recorded(name, launches, captured.nodes.kernels)
+            check_recorded(f"{name}'s conditional bodies", {}, captured.nodes.body_kernels)
+        if not branch:
+            self.launches = launches
+        return captured
 
     # -- segments: each writes its results into its slots and returns them --
 
@@ -362,23 +480,19 @@ class GraphedRollout:
         return slot
 
     def _static(self) -> VOState:
-        return self.state._replace(rng=self.samplers)
+        return self.state._replace(rng=self.samplers, rec_rng=self.rec_samplers)
 
     def _a(self):
         self.a = self._put("A", step_track(self._static(), self.image, self.K, self.cfg))
         return self.a
 
-    def _b1(self):
-        self.g = self._put("B1", step_locate(self._static(), self.a, self.K, self.cfg))
-        return self.g
+    def _r(self):
+        fb = step_recover(self._static(), self.a, self.K, self.cfg, self.rec_samplers)
+        return self._put("A", self.a._replace(pose_fb=fb))
 
-    def _eigh(self, g=None):
-        self.vecs = self._put("eigh", step_eigh(self.g))
-        return self.vecs
-
-    def _b2(self):
-        self.b = self._put("B2", step_map(self._static(), self.a, self.g, self.vecs,
-                                          self.image, self.cfg))
+    def _b2(self, g, vecs):
+        self.b = self._put("B2", step_map(self._static(), self.a, g, vecs, self.image,
+                                          self.cfg))
         return self.b
 
     def _c(self):
@@ -390,53 +504,57 @@ class GraphedRollout:
         self.out = self._put("out", out)
         return self.out
 
-    def _recover(self, a, lost: list):
-        fb = step_recover(self.state._replace(rng=self._lanes), a, self.K, self.cfg, lost)
-        self.stats.recoveries += 1
-        return self._put("A", a._replace(pose_fb=fb))
-
-    def _segments(self, run: Callable[[str], object], eigh: Callable) -> Segments:
-        """The schedule's segments (pipeline.run_step): `run(name)` runs or
-        replays the captured segment `name` and returns its results' slots;
-        R and eigh run eagerly."""
+    def _segments(self) -> Segments:
+        """The schedule's segments (pipeline.run_step) over the static
+        buffers. B1's and the eigh's results stay inside the frame's graph
+        and need no slot."""
         return Segments(
-            track=lambda: run("A"),
-            recover=self._recover,
-            locate=lambda a: run("B1"),
-            eigh=eigh,
-            map=lambda a, g, vecs: run("B2"),
-            keyframe=lambda a, b: run("C"),
-            finish=lambda a, b: run("D"),
+            track=self._a,
+            recover=lambda a: self._r(),
+            locate=lambda a: step_locate(self._static(), self.a, self.K, self.cfg),
+            eigh=step_eigh,
+            map=lambda a, g, vecs: self._b2(g, vecs),
+            keyframe=lambda a, b: self._c(),
+            finish=lambda a, b: self._d(),
         )
 
-    def _replay(self, name: str):
-        g = self.graphs[name]
-        g.replay()
-        for counter, n in g.launches.items():
-            kernels.launch_counts[counter] += n
-        if name == "C":
-            self.stats.keyframes += 1
-        return {"A": self.a, "B1": self.g, "B2": self.b, "C": self.b, "D": self.out}[name]
-
-    def _read(self, flag: str, t: torch.Tensor) -> list:
-        self.stats.syncs += 1
-        return self.capture.read(t)
-
-    def _synced_eigh(self, g):
-        self.stats.syncs += 1  # eigh's error check
-        return self._eigh()
+    def _if_node(self, name: str, pred: torch.Tensor, run, skipped):
+        """The frame's branch `name`: its predicate counted on the device and
+        an IF node over the branch's graph; the results are the slots, which
+        the branch rewrites where it runs."""
+        self.stats.taken[BRANCHES.index(name)] += pred
+        self.capture.if_node(pred, self.branches[name])
+        return skipped
 
     # -- rollout ----------------------------------------------------------------
+
+    def _bind(self, lanes: list, mine: list, drawn: list, what: str) -> list:
+        """Point this rollout's samplers (`mine`) at the lanes': a generator
+        draws into its lane's static uniforms, which `Drawn` reads in the
+        graph; a replaying sampler runs in the graph where the stand-in runs
+        Python again. Returns the (lane, generator) pairs to draw from."""
+        gens = []
+        for b, r in enumerate(lanes):
+            if isinstance(r, torch.Generator):
+                mine[b] = drawn[b]
+                gens.append((b, r))
+            elif self.capture.reruns_python:
+                mine[b] = r
+            else:
+                raise ValueError(f"a captured rollout draws from torch.Generators; lane {b}'s "
+                                 f"{what} is {r!r}")
+        return gens
 
     def __call__(self, state: VOState, images: torch.Tensor,
                  K: torch.Tensor) -> tuple[VOState, StepOutput]:
         """`vo_rollout` (one sequence; images (N, H, W)) or
         `batched_vo_rollout` (B lanes; images (N, B, H, W), K (B, 3, 3)) over
-        the graphs. The caller's state is read, never written."""
+        the frame's graph. The caller's state is read, never written."""
         if not is_lane_samplers(state.rng):
-            batched = map_state(lambda x: x[None], state, rng=[state.rng])
+            batched = map_state(lambda x: x[None], state, rng=[state.rng],
+                                rec_rng=[state.rec_rng])
             final, outs = self(batched, images[:, None], K.reshape(1, 3, 3))
-            return (map_state(lambda x: x[0], final, rng=state.rng),
+            return (map_state(lambda x: x[0], final, rng=state.rng, rec_rng=state.rec_rng),
                     StepOutput(*(f[:, 0] for f in outs)))
         lanes = list(state.rng)
         if (len(lanes) != len(self.samplers) or images.dtype != self.image.dtype
@@ -444,34 +562,35 @@ class GraphedRollout:
             raise ValueError(f"a runner of {self.image.dtype} frames "
                              f"{tuple(self.image.shape)} got {len(lanes)} lanes of "
                              f"{images.dtype} {tuple(images.shape[1:])}")
-        gens = []
-        for b, r in enumerate(lanes):
-            if isinstance(r, torch.Generator):
-                self.samplers[b] = self.drawn[b]
-                gens.append((b, r))
-            elif self.capture.reruns_python:
-                self.samplers[b] = r  # a replaying sampler runs inside A
-            else:
-                raise ValueError("a captured rollout draws from torch.Generators; lane "
-                                 f"{b} has {r!r}")
-        self._lanes = lanes
+        gens = self._bind(lanes, self.samplers, self.drawn, "PnP sampler")
+        rec_gens = (self._bind(list(state.rec_rng), self.rec_samplers, self.rec_drawn,
+                               "recovery sampler") if self.cfg.recovery.enabled else [])
         _copy_into(self.state, state)
         self.K.copy_(K)
         n = images.shape[0]
         outs = StepOutput(*(torch.empty((n,) + o.shape, dtype=o.dtype, device=o.device)
                             for o in self.out))
         rows, cols = self.uniforms.shape[1:]
-        replayed = self._segments(self._replay, self._synced_eigh)
-        for i in range(n):
-            self.image.copy_(images[i])
-            for b, gen in gens:
-                self.uniforms[b].copy_(draw_uniforms(gen, rows, cols))
-            out = run_step(replayed, self._read, self.cfg)
-            for f, o in zip(outs, out):
-                f[i].copy_(o)
+        rec_rows = self.rec_uniforms.shape[1]
+
+        def frames():
+            for i in range(n):
+                self.image.copy_(images[i])
+                for b, gen in gens:
+                    self.uniforms[b].copy_(draw_uniforms(gen, rows, cols))
+                for b, gen in rec_gens:
+                    self.rec_uniforms[b].copy_(draw_uniforms(gen, rec_rows, cols))
+                self.frame.replay()
+                for counter, k in self.launches.items():
+                    kernels.launch_counts[counter] += k
+                for f, o in zip(outs, self.out):
+                    f[i].copy_(o)
+
+        self.stats.syncs += self.capture.count_syncs(frames)
         self.stats.frames += n
         ROLLED["graphs"] += n
-        return map_state(torch.clone, self.state, rng=state.rng), outs
+        return (map_state(torch.clone, self.state, rng=state.rng, rec_rng=state.rec_rng),
+                outs)
 
 
 def graphed_rollout(state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VOConfig,
@@ -488,7 +607,7 @@ def runner_for(state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VOCon
     if is_lane_samplers(state.rng):
         lanes, frame, K_b = state, images[0], K
     else:
-        lanes = map_state(lambda x: x[None], state, rng=[state.rng])
+        lanes = map_state(lambda x: x[None], state, rng=[state.rng], rec_rng=[state.rec_rng])
         frame, K_b = images[0][None], K.reshape(1, 3, 3)
     key = runner_key(cfg, frame.shape[0], frame.shape[-2], frame.shape[-1], frame.dtype,
                      frame.device)
@@ -507,3 +626,24 @@ def capture_ahead(state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VO
     t0 = time.perf_counter()
     runner_for(state, images, K, cfg)
     return time.perf_counter() - t0
+
+
+def summary(cache: RunnerCache = RUNNERS) -> dict | None:
+    """What the cache's runners replayed, for a JSON line: host syncs a
+    frame, the frames on which R and C ran (the device counts, read here),
+    and each runner's graphs with their nodes and conditional nodes. None
+    where no runner was built."""
+    runners = cache.runners()
+    if not runners:
+        return None
+    stats = [r.stats for r in runners]
+    frames = sum(s.frames for s in stats)
+    return dict(
+        frames=frames,
+        syncs_per_step=sum(s.syncs for s in stats) / max(frames, 1),
+        recoveries=sum(s.recoveries for s in stats),
+        keyframes=sum(s.keyframes for s in stats),
+        graphs=[dict(lanes=len(r.samplers), nodes=r.stats.graphs,
+                     conditional_nodes=r.stats.conditionals, frames=r.stats.frames,
+                     capture_s=round(r.stats.capture_s, 3)) for r in runners],
+    )

@@ -4,15 +4,17 @@ harris, sift: frame-to-frame descriptor matching).
 
 `vo_step(state, image, K, cfg) -> (state, out)` runs eagerly on the device
 of its tensors. The reference's two `lax.cond`s (visual recovery when PnP
-fails, keyframe push + BA) are host `if`s on a synchronized flag here;
+fails, keyframe push + BA) are branches on a device predicate here, and
 everything else is static-shape masked tensor work, as in the reference.
-The step is written as segments split at those flags and at the one op a
-CUDA graph cannot hold (the DLT's eigh): `step_track` (A), `step_recover`
-(R), `step_locate` (B1), `step_eigh`, `step_map` (B2), `step_keyframe` (C),
-`step_finish` (D); `vo_step` composes them. `vo_rollout` on a CUDA state
-replays A, B1, B2, C and D as CUDA graphs (models/graphed.py), the
-counterpart of the reference's jit-compiled scan; elsewhere, or with
-`graph=False`, it is a Python loop over `vo_step`.
+The step is written as segments: `step_track` (A), `step_recover` (R),
+`step_locate` (B1), `step_eigh`, `step_map` (B2), `step_keyframe` (C),
+`step_finish` (D), and one schedule, `run_step`, which takes the two
+predicates as device tensors. `vo_step` reads each predicate on the host
+and skips a branch nobody takes; `vo_rollout` on a CUDA state replays the
+whole step as ONE CUDA graph a frame, R and C as IF conditional nodes
+decided on the device (models/graphed.py), the counterpart of the
+reference's jit-compiled scan; elsewhere, or with `graph=False`, it is a
+Python loop over `vo_step`.
 
 Lanes: `vo_step` also takes a BATCHED state — every leaf with a leading lane
 axis (B, ...), images (B, H, W), K (B, 3, 3) — and steps B independent
@@ -22,14 +24,19 @@ gives on lane b. As under the reference's `vmap`, each host branch becomes a
 select: the branch runs for all lanes when ANY lane takes it, and each
 lane's own predicate picks its result.
 
-Randomness: `bootstrap` takes a sampler (ops/ransac.py: a torch.Generator,
-or a callable replaying indices drawn elsewhere) and keeps it as
-`state.rng`; each RANSAC of a step draws from it in order (PnP, then the
-E-matrix recovery when PnP failed). A batched state carries a sequence of B
-samplers, one per lane. A lane draws from its own sampler only, and draws
-for the recovery only on frames where its OWN PnP failed — so lane b of a
-batch draws exactly what a single run of that lane draws, whatever happens
-to its neighbours.
+Randomness: two streams, as the reference splits its key into `k_pnp` and
+`k_rec` at every step. `bootstrap` takes a sampler (ops/ransac.py: a
+torch.Generator, or a callable replaying indices drawn elsewhere) and keeps
+it as `state.rng`: the bootstrap's RANSAC and every step's PnP draw from
+it, one draw a step. The recovery's sampler is `state.rec_rng`, which PnP
+never touches (by default a generator seeded from the PnP generator's seed,
+`recovery_stream`). A recovery generator's uniforms are drawn on EVERY step,
+whether or not a lane is lost (`recovery_samplers`), so the streams
+advance alike in the eager step and in the captured one, where the draw
+sits outside the graph and R inside a conditional node. A batched state
+carries a sequence of B samplers of each kind, one per lane; a lane draws
+from its own only, so lane b of a batch draws exactly what a single run of
+that lane draws, whatever happens to its neighbours.
 """
 
 from __future__ import annotations
@@ -69,7 +76,14 @@ from vo_tpu_torch.ops.harris import detect_keypoints, refine_corners_subpixel
 from vo_tpu_torch.ops.image import build_pyramid
 from vo_tpu_torch.ops.klt import TrackResult, pyramidal_lk
 from vo_tpu_torch.ops.pnp import pnp_ransac
-from vo_tpu_torch.ops.ransac import IDLE, Samplers, is_lane_samplers, where_lane
+from vo_tpu_torch.ops.ransac import (
+    Drawn,
+    Samplers,
+    draw_uniforms,
+    drawn_hypotheses,
+    is_lane_samplers,
+    where_lane,
+)
 from vo_tpu_torch.ops.linalg import eigh_finite
 from vo_tpu_torch.ops.triangulate import dlt_points, dlt_system, reprojection_error
 from vo_tpu_torch.utils.config import VOConfig
@@ -86,6 +100,7 @@ class VOState(NamedTuple):
     frame_idx: torch.Tensor  # () int32
     next_uid: torch.Tensor  # () int32
     rng: Samplers  # RANSAC sampler (torch.Generator or replaying callable), or B of them
+    rec_rng: Samplers  # the recovery's sampler (PnP never draws from it), or B of them
     window: BAWindow  # sliding keyframe window for on-device BA
     last_kf_idx: torch.Tensor  # () int32 frame index of the newest keyframe
     kf_adaptive: torch.Tensor  # () bool keyframe policy (False = fixed cadence)
@@ -103,9 +118,10 @@ class StepOutput(NamedTuple):
     frozen: torch.Tensor  # () bool — every pose tier was non-finite
 
 
-def map_state(fn, *states: VOState, rng: Samplers) -> VOState:
+def map_state(fn, *states: VOState, rng: Samplers, rec_rng: Samplers) -> VOState:
     """Apply fn to the corresponding tensor leaves of VOStates (table and
-    window fields, pyramid levels, poses and scalars); `rng` is set as given."""
+    window fields, pyramid levels, poses and scalars); the two samplers are
+    set as given."""
     first = states[0]
 
     def leaf(get):
@@ -119,12 +135,73 @@ def map_state(fn, *states: VOState, rng: Samplers) -> VOState:
         pyramid=tuple(
             leaf(lambda s, i=i: s.pyramid[i]) for i in range(len(first.pyramid))),
         rng=rng,
+        rec_rng=rec_rng,
         **{
             name: leaf(lambda s, name=name: getattr(s, name))
             for name in ("pose", "prev_pose", "frame_idx", "next_uid",
                          "last_kf_idx", "kf_adaptive", "last_speed")
         },
     )
+
+
+# A recovery generator's seed is its PnP generator's seed XOR this (odd,
+# 64-bit) constant: distinct PnP seeds give distinct recovery seeds, and no
+# draw of the PnP stream is spent on it.
+_RECOVERY_SEED = 0x9E3779B97F4A7C15
+
+
+def recovery_stream(rng: Samplers) -> Samplers:
+    """The recovery's sampler(s) for PnP sampler(s) `rng` where the caller
+    gives none: for each torch.Generator a new generator on its device,
+    seeded from its seed (`_RECOVERY_SEED`). A replaying sampler has no such
+    counterpart: the caller passes the recovery's own. None stays None (a
+    state compared, never stepped)."""
+    if rng is None:
+        return None
+    if is_lane_samplers(rng):
+        return [recovery_stream(r) for r in rng]
+    if not isinstance(rng, torch.Generator):
+        raise ValueError(f"the PnP sampler is {type(rng).__name__}, not a torch.Generator: "
+                         "pass the recovery's sampler (rec_rng) too")
+    gen = torch.Generator(device=rng.device)
+    return gen.manual_seed(rng.initial_seed() ^ _RECOVERY_SEED)
+
+
+def recovery_shape(cfg: VOConfig) -> tuple[int, int]:
+    """(hypotheses, points) of the recovery's uniforms: one row a hypothesis
+    of R's RANSAC (ops/ransac.py `drawn_hypotheses`), one column a slot."""
+    return drawn_hypotheses(cfg.recovery.num_hypotheses), cfg.capacity
+
+
+def recovery_samplers(rec_rng: Samplers, cfg: VOConfig) -> list:
+    """This step's recovery samplers, one a lane: a generator's uniforms are
+    drawn NOW (`draw_uniforms`, whether or not R will run) and handed to R
+    as `Drawn`; a replaying sampler is passed on as it is."""
+    rows, cols = recovery_shape(cfg)
+    return [Drawn(draw_uniforms(r, rows, cols)) if isinstance(r, torch.Generator) else r
+            for r in rec_rng]
+
+
+def generators(state: VOState) -> list:
+    """Every torch.Generator the state's samplers hold: PnP's, then the
+    recovery's, lane by lane."""
+    found = []
+    for samplers in (state.rng, state.rec_rng):
+        lanes = samplers if is_lane_samplers(samplers) else [samplers]
+        found += [g for g in lanes if isinstance(g, torch.Generator)]
+    return found
+
+
+def rewinder(state: VOState) -> Callable[[], None]:
+    """A function that puts every generator of `state` back where it stands
+    now, so that a second rollout from `state` makes the first one's draws."""
+    saved = [(g, g.get_state()) for g in generators(state)]
+
+    def rewind() -> None:
+        for g, s in saved:
+            g.set_state(s)
+
+    return rewind
 
 
 # ---------------------------------------------------------------------------
@@ -307,12 +384,17 @@ def bootstrap(
     K: torch.Tensor,
     cfg: VOConfig,
     rng: Samplers,
+    rec_rng: Samplers | None = None,
 ) -> tuple[VOState, StepOutput]:
     """Initialize the map from two (non-adjacent) frames of ONE sequence.
     The world frame is camera 0; the bootstrap baseline is fixed to |t| = 1.
+    The bootstrap's RANSAC draws from `rng`, which PnP goes on drawing from;
+    `rec_rng` is the recovery's stream (default `recovery_stream(rng)`).
     The lanes of a multi-sequence run are bootstrapped one by one and
     stacked (parallel/multiseq.py `stack_states`)."""
     _check_tracker(cfg)
+    if rec_rng is None:
+        rec_rng = recovery_stream(rng)
     dev = image0.device
     kcap = cfg.capacity
     kps = _detect_mode(image0, cfg)
@@ -381,6 +463,7 @@ def bootstrap(
         frame_idx=_i32(gap, dev),
         next_uid=_i32(kcap, dev),
         rng=rng,
+        rec_rng=rec_rng,
         window=window,
         last_kf_idx=_i32(gap, dev),
         kf_adaptive=torch.tensor(cfg.ba.keyframe_mode == "adaptive", device=dev),
@@ -411,9 +494,10 @@ def vo_rollout(
     """Run `vo_step` over a stacked (N, H, W) frame chunk; returns the final
     state and the per-frame StepOutputs stacked along a leading axis.
 
-    On a CUDA state the step's segments replay as CUDA graphs, captured once
-    per configuration and shape and kept for the process
-    (models/graphed.py, utils/cache.py): the counterpart of the reference's
+    On a CUDA state the step replays as one CUDA graph a frame, captured
+    once per configuration and shape and kept for the process
+    (models/graphed.py, utils/cache.py), with no host read between the
+    first frame and the caller's fetch: the counterpart of the reference's
     jit-compiled `lax.scan`. The results are the eager loop's bit for bit; a
     capture or replay that fails raises. `graph=False` runs the eager loop
     (the counterpart of `jax.disable_jit`), as the CPU always does. The
@@ -458,42 +542,45 @@ def _mat_points(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 def vo_step(
     state: VOState, image: torch.Tensor, K: torch.Tensor, cfg: VOConfig
 ) -> tuple[VOState, StepOutput]:
-    """One frame: the segments below in order, split where the host decides
-    or must read the device. A -> flag `lost` -> R -> B (B1 -> the DLT's
-    eigh -> B2) -> flag `push` -> C -> D. The captured rollout replays A,
-    B1, B2, C and D as CUDA graphs and runs the rest between them."""
+    """One frame: the recovery's uniforms are drawn, then `run_step`'s
+    schedule runs the segments eagerly, reading each branch's predicate on
+    the host (`eager_branch`). The captured rollout runs the same schedule
+    as one CUDA graph with the branches as conditional nodes."""
     _check_tracker(cfg)
     if not is_lane_samplers(state.rng):
         # One sequence is a batch of one lane: the same kernels and the same
         # reduction shapes as lane b of a larger batch, so a single run and
         # its lane in a batched run round alike.
-        batch_of_one = map_state(lambda x: x[None], state, rng=[state.rng])
+        batch_of_one = map_state(lambda x: x[None], state, rng=[state.rng],
+                                 rec_rng=[state.rec_rng])
         new, out = vo_step(batch_of_one, image[None], K.reshape(1, 3, 3), cfg)
-        return (map_state(lambda x: x[0], new, rng=state.rng),
+        return (map_state(lambda x: x[0], new, rng=state.rng, rec_rng=state.rec_rng),
                 StepOutput(*(f[0] for f in out)))
     if image.ndim != 3 or len(state.rng) != image.shape[0]:
         raise ValueError(
             f"a state of {len(state.rng)} lanes needs images (B, H, W), got "
             f"{tuple(image.shape)}")
+    rec = recovery_samplers(state.rec_rng, cfg) if cfg.recovery.enabled else None
     eager = Segments(
         track=lambda: step_track(state, image, K, cfg),
-        recover=lambda a, lost: a._replace(pose_fb=step_recover(state, a, K, cfg, lost)),
+        recover=lambda a: a._replace(pose_fb=step_recover(state, a, K, cfg, rec)),
         locate=lambda a: step_locate(state, a, K, cfg),
         eigh=step_eigh,
         map=lambda a, g, vecs: step_map(state, a, g, vecs, image, cfg),
         keyframe=lambda a, b: step_keyframe(a, b, K, cfg),
         finish=lambda a, b: step_finish(state, a, b),
     )
-    return run_step(eager, lambda flag, t: t.tolist(), cfg)
+    return run_step(eager, eager_branch, cfg)
 
 
 class Segments(NamedTuple):
     """One frame's segments as callables over the results of the earlier
     ones: `vo_step` calls the step_* functions; the captured rollout
-    (models/graphed.py) replays graphs that write static buffers."""
+    (models/graphed.py) captures them into its graphs, where they write
+    static buffers."""
 
     track: Callable[[], Any]  # A -> Tracked
-    recover: Callable[[Any, list], Any]  # R (a, lost) -> Tracked
+    recover: Callable[[Any], Any]  # R (a) -> Tracked, the lost lanes' fallback replaced
     locate: Callable[[Any], Any]  # B1 (a) -> Located
     eigh: Callable[[Any], Any]  # (g) -> the DLT's eigenvectors
     map: Callable[[Any, Any, Any], Any]  # B2 (a, g, vecs) -> Mapped
@@ -501,21 +588,35 @@ class Segments(NamedTuple):
     finish: Callable[[Any, Any], Any]  # D (a, b) -> the step's result
 
 
-def run_step(seg: Segments, read: Callable[[str, torch.Tensor], list], cfg: VOConfig):
-    """The step's schedule, the one place it is written: A, the flag `lost`
-    (when recovery is on) and R if a lane is lost, B1, eigh, B2, the flag
-    `push` (when BA is on) and C if a lane pushes, D. `read(flag, t)`
-    brings the lanes' flag `t` to the host as a list."""
+# branch(name, pred, run, skipped): run() where the device predicate `pred`
+# (a bool tensor) holds, else `skipped`, the results as they stand.
+Branch = Callable[[str, torch.Tensor, Callable[[], Any], Any], Any]
+
+
+def run_step(seg: Segments, branch: Branch, cfg: VOConfig):
+    """The step's schedule, the one place it is written: A; with the
+    recovery on, R under "a lane lost its pose"; B1, eigh, B2; with BA on,
+    C under "a lane pushes a keyframe"; D. Each predicate is a device
+    tensor over the lanes, as the reference's `lax.cond`s take theirs;
+    `branch` decides how it is taken (`eager_branch` reads it, the captured
+    rollout makes it a conditional node). Inside a branch the work stays
+    lane by lane: a lane keeps the branch's result only under its own
+    predicate."""
     a = seg.track()
     if cfg.recovery.enabled:
-        lost = [not ok for ok in read("lost", a.pose_ok)]
-        if any(lost):
-            a = seg.recover(a, lost)
+        a = branch("R", (~a.pose_ok).any(), lambda: seg.recover(a), a)
     g = seg.locate(a)
     b = seg.map(a, g, seg.eigh(g))
-    if cfg.ba.enabled and any(read("push", b.push)):
-        b = seg.keyframe(a, b)
+    if cfg.ba.enabled:
+        b = branch("C", b.push.any(), lambda: seg.keyframe(a, b), b)
     return seg.finish(a, b)
+
+
+def eager_branch(name: str, pred: torch.Tensor, run: Callable[[], Any], skipped: Any):
+    """The eager step's branch: one host read of the predicate, and the
+    branch skipped where no lane takes it (which gives the bits of a
+    conditional node that does not run)."""
+    return run() if bool(pred) else skipped
 
 
 class Tracked(NamedTuple):
@@ -667,16 +768,16 @@ def step_track(state: VOState, image: torch.Tensor, K: torch.Tensor,
 
 
 def step_recover(state: VOState, a: Tracked, K: torch.Tensor, cfg: VOConfig,
-                 lost: list) -> torch.Tensor:
+                 samplers: Samplers) -> torch.Tensor:
     """Segment R, run only when a lane lost its pose: fallback tier 2, the
     visual relative pose from this frame's 2D-2D tracks (8-point RANSAC ->
     E -> cheirality), scale pinned as the constant-velocity tier. It runs
-    for all lanes; only a lost lane draws from its sampler and takes the
-    result. Returns the new fallback pose."""
-    rng = [r if lost_b else IDLE for r, lost_b in zip(state.rng, lost)]
+    for all lanes, each on its own recovery sampler of this step
+    (`recovery_samplers`); only a lost lane takes the result. Returns the
+    new fallback pose."""
     prev_xy_u = _undistort(state.table.xy, K, cfg)
     res = fundamental_ransac(
-        rng, prev_xy_u, a.xy_u, valid=a.tracked,
+        samplers, prev_xy_u, a.xy_u, valid=a.tracked,
         inlier_threshold_px=cfg.recovery.inlier_threshold_px,
         num_hypotheses=cfg.recovery.num_hypotheses,
     )
@@ -730,8 +831,8 @@ def step_locate(state: VOState, a: Tracked, K: torch.Tensor, cfg: VOConfig) -> L
 
 
 def step_eigh(g: Located) -> torch.Tensor:
-    """The boundary between B1 and B2: the DLT's eigenvectors. eigh reads its
-    error flag on the host, so it runs eagerly between two graphs."""
+    """Between B1 and B2: the DLT's eigenvectors (on the card cuSOLVER's
+    XsyevBatched with its error flag left on the device, ops/cusolver.py)."""
     return eigh_finite(g.system)[1]
 
 
@@ -842,6 +943,7 @@ def step_finish(state: VOState, a: Tracked, b: Mapped) -> tuple[VOState, StepOut
         frame_idx=b.new_frame_idx,
         next_uid=b.next_uid,
         rng=state.rng,
+        rec_rng=state.rec_rng,
         window=b.window,
         last_kf_idx=b.last_kf_idx,
         kf_adaptive=state.kf_adaptive,
@@ -909,19 +1011,24 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(arr.astype(np.float32), device=device)
 
 
-def state_from_numpy(state, device, rng: Samplers) -> VOState:
+def state_from_numpy(state, device, rng: Samplers,
+                     rec_rng: Samplers | None = None) -> VOState:
     """Build a VOState from arrays: a mapping (or NamedTuple, e.g. a JAX
     `VOState`) with VOState's field names whose `table`/`window` are
     mappings or NamedTuples of arrays and `pyramid` a sequence of arrays.
     Floats become f32, integers int32 (the numpy -> torch boundary). The
-    JAX PRNG key has no counterpart: `rng` is the port's sampler. A batched
+    JAX PRNG key has no counterpart: `rng` is the port's PnP sampler and
+    `rec_rng` the recovery's (default `recovery_stream(rng)`). A batched
     state (every leaf with a leading B, as `jax.vmap` carries it) comes
-    across the same way, with `rng` a sequence of B samplers."""
+    across the same way, with each a sequence of B samplers."""
+    if rec_rng is None:
+        rec_rng = recovery_stream(rng)
     if is_lane_samplers(rng):
-        rng = list(rng)
+        rng, rec_rng = list(rng), list(rec_rng)
         lanes = np.asarray(_fields(state)["frame_idx"]).shape
-        if lanes != (len(rng),):
-            raise ValueError(f"{len(rng)} samplers for a state with lane shape {lanes}")
+        if lanes != (len(rng),) or len(rec_rng) != len(rng):
+            raise ValueError(f"{len(rng)} samplers and {len(rec_rng)} recovery samplers "
+                             f"for a state with lane shape {lanes}")
     s = _fields(state)
     table = FeatureTable(**{k: _to_tensor(v, device) for k, v in _fields(s["table"]).items()})
     window = BAWindow(**{k: _to_tensor(v, device) for k, v in _fields(s["window"]).items()})
@@ -935,18 +1042,19 @@ def state_from_numpy(state, device, rng: Samplers) -> VOState:
         window=window,
         pyramid=tuple(_to_tensor(p, device) for p in s["pyramid"]),
         rng=rng,
+        rec_rng=rec_rng,
         **scalars,
     )
 
 
 def state_to_numpy(state: VOState) -> dict:
     """The inverse of `state_from_numpy`: nested dict of numpy arrays (the
-    sampler is left out)."""
+    samplers are left out)."""
     def np_(t):
         return t.detach().cpu().numpy()
 
     out = {k: np_(v) for k, v in state._asdict().items()
-           if k not in ("table", "window", "pyramid", "rng")}
+           if k not in ("table", "window", "pyramid", "rng", "rec_rng")}
     out["table"] = {k: np_(v) for k, v in state.table._asdict().items()}
     out["window"] = {k: np_(v) for k, v in state.window._asdict().items()}
     out["pyramid"] = [np_(p) for p in state.pyramid]

@@ -49,6 +49,9 @@ _SIGNATURES = {
     "vo_extract_patch_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (stream) — an empty kernel, the launch-latency floor
     "vo_empty_launch": (_P,),
+    # (capturing stream, device bool, branch graph, IF node out, body graph
+    # out) — an IF node in the graph being captured (csrc/graph_cond.cu)
+    "vo_graph_if_node": (_P, _P, _P, _P, _P),
 }
 
 

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from vo_tpu_torch.geom.points import lift, normalize_points, to_homogeneous
+from vo_tpu_torch.geom.points import device_vector, lift, normalize_points, to_homogeneous
 from vo_tpu_torch.ops.linalg import eigh_finite, svd_finite
 from vo_tpu_torch.ops.ransac import (
     RansacResult,
@@ -128,8 +128,9 @@ def decompose_essential(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     one = torch.ones_like(detU)
     U = U * torch.stack([one, one, detU], dim=-1)[..., None, :]
     Vh = Vh * torch.stack([one, one, detV], dim=-1)[..., :, None]
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    # Written on the device (no host copy, which a CUDA graph cannot hold).
+    W = device_vector([0.0, -1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0],
+                      E.device).reshape(3, 3).to(E.dtype)
     R1 = U @ W @ Vh
     R2 = U @ W.T @ Vh
     t = U[..., :, 2]

@@ -1,5 +1,6 @@
 """Small dense SPD solves by hand-written Cholesky — port of
-vo_tpu/ops/linalg.py, plus guarded eigh/svd wrappers.
+vo_tpu/ops/linalg.py, plus guarded eigh/svd wrappers that never read the
+device from the host.
 
 The 6x6 PnP Gauss-Newton step and the (W, W, 6, 6) reduced camera system of
 windowed BA are SPD by construction (J^T J + damping + gauge), so they are
@@ -13,6 +14,8 @@ over its rows.
 from __future__ import annotations
 
 import torch
+
+from vo_tpu_torch.ops import cusolver
 
 
 def chol_small(A: torch.Tensor, n: int, eps: float = 1e-20) -> torch.Tensor:
@@ -107,21 +110,27 @@ def _finite_rows(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def eigh_finite(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """torch.linalg.eigh (ascending) that returns NaN for a batch element
-    holding a non-finite entry instead of raising, as LAPACK-through-XLA
-    does for the reference."""
+    """eigh (ascending) that returns NaN for a batch element holding a
+    non-finite entry instead of raising, as LAPACK-through-XLA does for the
+    reference. On the card: the cuSOLVER routine torch.linalg.eigh runs
+    (XsyevBatched: the same bits) with its error flag left on the device
+    (ops/cusolver.py), so a CUDA graph can hold it; on the CPU:
+    torch.linalg.eigh (LAPACK), the plain version."""
     ok, A = _finite_rows(A)
-    vals, vecs = torch.linalg.eigh(A)
+    vals, vecs = cusolver.syev_batched(A) if A.is_cuda else torch.linalg.eigh(A)
     nan = float("nan")
     return (torch.where(ok[..., None], vals, nan),
             torch.where(ok[..., None, None], vecs, nan))
 
 
 def svd_finite(A: torch.Tensor, full_matrices: bool = True):
-    """torch.linalg.svd (square matrices) with the same non-finite guard as
-    `eigh_finite`."""
+    """svd (square matrices, so `full_matrices` changes nothing) with the
+    same non-finite guard as `eigh_finite`. On the card: cuSOLVER's
+    gesvdjBatched with torch.linalg.svd's parameters and no host read; on
+    the CPU: torch.linalg.svd."""
     ok, A = _finite_rows(A)
-    U, S, Vh = torch.linalg.svd(A, full_matrices=full_matrices)
+    U, S, Vh = (cusolver.gesvdj_batched(A) if A.is_cuda
+                else torch.linalg.svd(A, full_matrices=full_matrices))
     nan = float("nan")
     return (torch.where(ok[..., None, None], U, nan),
             torch.where(ok[..., None], S, nan),

@@ -296,7 +296,7 @@ def _rollout_main(args, backend: str, dev) -> int:
     cfg = VOConfig(capacity=args.capacity)
     st, _ = bootstrap(frames[0], frames[2], K, cfg,
                       torch.Generator(device=dev).manual_seed(2023))
-    st = map_state(lambda x: broadcast(x, mesh, "data"), st, rng=st.rng)
+    st = map_state(lambda x: broadcast(x, mesh, "data"), st, rng=st.rng, rec_rng=st.rec_rng)
     images = frames[plan, None].expand(-1, lanes_local, -1, -1).contiguous()
     Ks = K.expand(lanes_local, 3, 3).contiguous()
     rollout = make_sharded_rollout(mesh, cfg)

@@ -9,8 +9,9 @@ Where the reference wraps `vo_step` in `jax.vmap`, the port's `vo_step`
 takes the lane axis itself (models/pipeline.py): every leaf of the state
 carries a leading B, and the two kernels run once per call over all lanes
 (K1b, K2b) — there is no loop over lanes in the step's tensor work. Only the
-RANSAC draws are made lane by lane, each from the lane's own sampler, so
-lane b of a batched rollout is the single rollout of lane b.
+RANSAC draws are made lane by lane, each from the lane's own samplers (its
+PnP stream and its recovery stream), so lane b of a batched rollout is the
+single rollout of lane b.
 
 Over ranks (`shard_batched_state`, `make_sharded_rollout`) the lanes are
 split over the mesh "data" axis: a rank holds its lanes and rolls them with
@@ -24,30 +25,42 @@ from typing import Sequence
 
 import torch
 
-from vo_tpu_torch.models.pipeline import StepOutput, VOState, map_state, vo_rollout, vo_step
+from vo_tpu_torch.models.pipeline import (
+    StepOutput,
+    VOState,
+    map_state,
+    recovery_stream,
+    vo_rollout,
+    vo_step,
+)
 from vo_tpu_torch.ops.ransac import Sampler, is_lane_samplers
 from vo_tpu_torch.parallel.mesh import all_gather, axis_index, axis_size, local_rows
 from vo_tpu_torch.utils.config import VOConfig
 
 
-def replicate_state(state: VOState, batch: int, samplers: Sequence[Sampler]) -> VOState:
+def replicate_state(state: VOState, batch: int, samplers: Sequence[Sampler],
+                    rec_samplers: Sequence[Sampler] | None = None) -> VOState:
     """Tile a single-sequence VOState into a batched one (leading axis B).
     `samplers` are the B independent RANSAC samplers of the lanes (where the
-    reference splits the state's key B ways)."""
+    reference splits the state's key B ways), `rec_samplers` their recovery
+    streams (default `recovery_stream(samplers)`)."""
     samplers = list(samplers)
-    if len(samplers) != batch:
-        raise ValueError(f"{batch} lanes need {batch} samplers, got {len(samplers)}")
-    return map_state(
-        lambda x: x[None].expand((batch,) + x.shape).contiguous(), state, rng=samplers)
+    rec_samplers = list(recovery_stream(samplers) if rec_samplers is None else rec_samplers)
+    if len(samplers) != batch or len(rec_samplers) != batch:
+        raise ValueError(f"{batch} lanes need {batch} samplers of each kind, got "
+                         f"{len(samplers)} and {len(rec_samplers)}")
+    return map_state(lambda x: x[None].expand((batch,) + x.shape).contiguous(), state,
+                     rng=samplers, rec_rng=rec_samplers)
 
 
 def stack_states(states: Sequence[VOState]) -> VOState:
     """Stack single-sequence VOStates (each bootstrapped on its own) into one
-    batched state; lane b keeps state b's sampler."""
+    batched state; lane b keeps state b's two samplers."""
     states = list(states)
     if any(is_lane_samplers(s.rng) for s in states):
         raise ValueError("stack_states takes single-sequence states")
-    return map_state(lambda *xs: torch.stack(xs), *states, rng=[s.rng for s in states])
+    return map_state(lambda *xs: torch.stack(xs), *states, rng=[s.rng for s in states],
+                     rec_rng=[s.rec_rng for s in states])
 
 
 def batched_vo_step(
@@ -90,14 +103,15 @@ def batched_vo_rollout(
 def shard_batched_state(states: VOState, mesh) -> VOState:
     """This rank's lanes of a batched VOState given whole on every rank: the
     lane axis is split over the mesh "data" axis in equal blocks, and each
-    lane keeps its own sampler."""
+    lane keeps its own samplers."""
     n, i = axis_size(mesh, "data"), axis_index(mesh, "data")
     b = len(states.rng)
     if b % n:
         raise ValueError(f"{b} lanes do not split over {n} ranks of 'data'")
     per = b // n
+    mine = slice(i * per, (i + 1) * per)
     return map_state(lambda x: local_rows(x, mesh, "data"), states,
-                     rng=list(states.rng[i * per:(i + 1) * per]))
+                     rng=list(states.rng[mine]), rec_rng=list(states.rec_rng[mine]))
 
 
 def make_sharded_rollout(mesh, cfg: VOConfig):

@@ -23,8 +23,10 @@ from vo_tpu_torch.utils.config import VOConfig
 
 def runner_key(cfg: VOConfig, batch: int, height: int, width: int, dtype, device) -> tuple:
     """(cfg, lanes, frame height, frame width, frame dtype, device): what
-    fixes the shapes, the types and the code a capture records (`cfg` holds
-    the capacity and the kernel routing)."""
+    fixes the shapes, the types and the code a capture records. `cfg` holds
+    the capacity, the kernel routing and what decides the graph's shape:
+    the recovery on or off (an IF node for R or none) and BA on or off (an
+    IF node for C or none)."""
     return (cfg, batch, height, width, dtype, str(device))
 
 
@@ -42,6 +44,10 @@ class RunnerCache:
             runner = self._runners[key] = build()
             self.captures += 1
         return runner
+
+    def runners(self) -> list:
+        """Every runner built, in the order they were built."""
+        return list(self._runners.values())
 
     def find(self, key: tuple) -> Any:
         """The runner under `key`, or None: nothing is built."""

@@ -10,11 +10,13 @@ step is a function of (state, frame) and of the sampler's stream).
 The file format is the reference's v2: keys are the state's KEY PATHS
 ("state/table/xy", "state/pyramid/0", "_backend/graph/node_pose", ...) plus
 `_format_version`, so a checkpoint written by the JAX package loads here,
-every leaf but the sampler. The sampler is a `torch.Generator`: its
-`get_state()` bytes are stored under "state/rng" (and the back-end's under
-"_backend/key") with the device kind beside them, and restored with
-`set_state`. A `jax.random` key found there cannot be turned into a
-generator: the caller passes the sampler to continue with.
+every leaf but the sampler. The samplers are `torch.Generator`s: their
+`get_state()` bytes are stored under "state/rng" (PnP's), "state/rec_rng"
+(the recovery's) and "_backend/key" (the back-end's) with the device kind
+beside each, and restored with `set_state`. A `jax.random` key found under
+"state/rng" cannot be turned into a generator, and a file the JAX package
+or an older port wrote has no "state/rec_rng": the caller passes the
+sampler to continue with, and no stream is guessed.
 """
 
 from __future__ import annotations
@@ -89,6 +91,8 @@ def _flatten(state: VOState) -> dict[str, np.ndarray]:
         arrays[f"state/{name}"] = _np(getattr(state, name))
     arrays["state/rng"] = _generator_state(state.rng, "the state's sampler")
     arrays["_rng_device"] = np.asarray(state.rng.device.type)
+    arrays["state/rec_rng"] = _generator_state(state.rec_rng, "the recovery's sampler")
+    arrays["_rec_rng_device"] = np.asarray(state.rec_rng.device.type)
     return arrays
 
 
@@ -161,10 +165,13 @@ def load_backend(path: str, device="cuda", key=None):
     )
 
 
-def load_checkpoint(path: str, device="cuda", rng=None) -> tuple[VOState, VOConfig, Any, Any]:
+def load_checkpoint(path: str, device="cuda", rng=None,
+                    rec_rng=None) -> tuple[VOState, VOConfig, Any, Any]:
     """Read (state, cfg, trajectory, frame_ids) back from `path`, the state
-    on `device`. `rng` replaces the stored sampler; it is needed for a file
-    the JAX package wrote (its PRNG key is no generator)."""
+    on `device`. `rng` and `rec_rng` replace the stored samplers (PnP's and
+    the recovery's); they are needed for a file the JAX package wrote (its
+    PRNG key is no generator), and `rec_rng` for a file written before the
+    recovery had a stream of its own."""
     device = torch.device(device)
     with open(path + ".json") as f:
         cfg = _cfg_from_dict(json.load(f))
@@ -198,12 +205,20 @@ def load_checkpoint(path: str, device="cuda", rng=None) -> tuple[VOState, VOConf
                 "torch.Generator: pass the sampler to continue with as `rng`")
         rng = _restore_generator(leaves["state/rng"], str(data["_rng_device"]), device,
                                  "the state's sampler")
+    if rec_rng is None:
+        if "state/rec_rng" not in data:
+            raise KeyError(
+                f"checkpoint {path} has no 'state/rec_rng' (the recovery's stream): it "
+                "was written by the JAX package or before the recovery drew from a "
+                "stream of its own; pass the sampler to continue with as `rec_rng`")
+        rec_rng = _restore_generator(data["state/rec_rng"], str(data["_rec_rng_device"]),
+                                     device, "the recovery's sampler")
     tree = {k[len("state/"):]: v for k, v in leaves.items()
             if k.count("/") == 1 and k != "state/rng"}
     tree["table"] = {f: leaves[f"state/table/{f}"] for f in FeatureTable._fields}
     tree["window"] = {f: leaves[f"state/window/{f}"] for f in BAWindow._fields}
     tree["pyramid"] = [leaves[f"state/pyramid/{i}"] for i in range(n_pyr)]
-    state = state_from_numpy(tree, device, rng)
+    state = state_from_numpy(tree, device, rng, rec_rng)
     traj = data["_trajectory"] if "_trajectory" in data else None
     fids = data["_frame_ids"] if "_frame_ids" in data else None
     return state, cfg, traj, fids

@@ -38,10 +38,11 @@ Phases:
      two IF nodes and no host sync in it, finiteness, the pose_ok count and
      the ATE against exact ground truth; the DLT's eigh on the card
      (ops/cusolver.py) bit-equal to torch.linalg.eigh on the headline's own
-     DLT systems, and R's eighs and SVDs against torch.linalg (reported);
-     prints both frames/s, the capture's seconds, the graphs and their
-     nodes, the host syncs a step and the frames on which R and C ran, as
-     the device counted them;
+     DLT systems: each of the eager warm-up's first 16 steps runs both on
+     its systems (the bootstrap state, the run's own draws); prints both
+     frames/s, the capture's seconds, the graphs and their nodes, the syncs
+     a step that torch's sync detector reported and the frames on which R
+     and C ran, as the device counted them;
   7b. `bench`: the measurement entry points. (a) K1 and the K2 pair at KITTI
      05's frame size (370x1226) and its pyramid levels against their plain
      versions, timed; (b) bench_torch's `bench_kitti_probe` over the first 6
@@ -77,7 +78,9 @@ Phases:
      then R inside the graph: three lanes at capacity 512, the third fed
      seeded noise from frame 3 (lost on every frame), 20 steps captured
      against eager bit for bit, the device's count of R's frames equal to
-     the eager step's, no host sync;
+     the eager step's, no sync reported; the eager run's eighs and SVDs
+     (R's and the DLT's, the first 4 calls of each shape) against
+     torch.linalg, reported;
   9. `data`: the disk data layer at full width. (a) what the machine has
      for decoding (g++, the png.h and jpeglib.h headers, PIL, cv2,
      matplotlib); the native frame loader must build where the headers
@@ -143,6 +146,7 @@ exits non-zero without that line; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -191,6 +195,8 @@ MULTISEQ_ATE_FLOOR_M = 2.0
 # pose_ok must hold on 95% of a lane's frames (567 of 597).
 MULTISEQ_POSE_OK_SHARE = 0.95
 RECOVERY_STEPS = 20  # steps of the three lanes whose third loses its pose (>= 16)
+DLT_HELD_FRAMES = 16  # the headline's first eager steps whose DLT eigh meets torch.linalg's
+ROUTE_CALLS = 4  # calls of each cuSOLVER routine and shape held to torch.linalg in R's run
 
 # The run_vo_torch phases. ATE yardsticks are the JAX package's own figures
 # (EVAL.md, taken on a TPU): yardsticks of ACCURACY only.
@@ -612,7 +618,7 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     from vo_tpu_torch.data import synthetic
     from vo_tpu_torch.models import graphed
     from vo_tpu_torch.models.pipeline import vo_rollout
-    from vo_tpu_torch.ops import kernels
+    from vo_tpu_torch.ops import cusolver, kernels
     from vo_tpu_torch.utils.cache import runner_key
     from vo_tpu_torch.utils.config import VOConfig
 
@@ -625,7 +631,8 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     graphed.RUNNERS.clear()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    run = bench_torch.bench_synthetic_full(dev, city_root)
+    with _dlt_held_to_torch_linalg(DLT_HELD_FRAMES) as dlt:
+        run = bench_torch.bench_synthetic_full(dev, city_root)
     t_all = time.perf_counter() - t0
     counts = dict(kernels.launch_counts)
     warm, outs = run.rollouts.warm, run.rollouts.timed
@@ -666,10 +673,18 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
                       recoveries=st.recoveries, keyframes=st.keyframes, frames=st.frames)
         print(f"[headline] one graph a frame: {st.graphs['frame']} nodes, "
               f"{st.conditionals} IF nodes (R's body {st.graphs.get('R')} nodes, C's "
-              f"{st.graphs.get('C')}); captured in {st.capture_s:.2f} s; host syncs a step "
-              f"{graphs['syncs_per_step']:.2f}; on the device's count R ran on "
+              f"{st.graphs.get('C')}); captured in {st.capture_s:.2f} s; syncs a step "
+              f"torch's detector reported {graphs['syncs_per_step']:.2f}; on the device's "
+              f"count R ran on "
               f"{st.recoveries} of {st.frames} frames, C on {st.keyframes}")
-    routes = _eigh_routes(dev, run, cfg)
+    routes = dict(library=cusolver._lib()._name, frames=len(dlt),
+                  shape=dlt[0]["shape"] if dlt else None,
+                  finite=[c["finite"] for c in dlt], equal=all(c["equal"] for c in dlt),
+                  max_abs=max((c["max_abs"] for c in dlt if c["finite"]), default=None))
+    print(f"[headline] the DLT's eigh on the card against torch.linalg.eigh over the eager "
+          f"warm-up's first {routes['frames']} frames ({routes['shape']}, finite systems "
+          f"{routes['finite']}): bit-equal {routes['equal']} (max |diff| {routes['max_abs']}; "
+          f"{routes['library']})")
     print(f"[headline] ATE {ate:.4f} m (reference {REFERENCE_ATE_M} m, drift "
           f"{100.0 * (ate - REFERENCE_ATE_M) / REFERENCE_ATE_M:+.1f}%), "
           f"RPE {res['rpe_trans_m']:.5f} m / {res['rpe_rot_deg']:.5f} deg")
@@ -717,8 +732,10 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
             or graphs["syncs_per_step"] != 0:
         fails.append(f"want one graph a frame holding two IF nodes (R, C) and no host sync, "
                      f"got {graphs}")
-    if not routes["dlt_equal"]:
-        fails.append(f"the DLT's eigh route differs from torch.linalg.eigh: {routes}")
+    if (routes["frames"] != DLT_HELD_FRAMES or not routes["equal"]
+            or min(routes["finite"], default=0) == 0):
+        fails.append(f"the DLT's eigh route against torch.linalg.eigh over the warm-up's "
+                     f"first {DLT_HELD_FRAMES} frames: {routes}")
     want_traced = {"corner_nms_kernel": TRACED_FRAMES,
                    "patch_gather_kernel": levels * TRACED_FRAMES}
     if (traced["trace"] != want_traced or traced["counted"] != want_traced
@@ -737,54 +754,83 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
         raise AssertionError("; ".join(fails))
 
 
-def _eigh_routes(dev, run, cfg) -> dict:
-    """The step's eigh and SVD routes on the card (ops/cusolver.py: the
-    cuSOLVER routines torch.linalg calls, no host read) against
-    torch.linalg on the headline's own systems: the DLT's (B1's systems for
-    frame 3 from the bootstrap state: must be bit-equal), and every eigh
-    and SVD that R makes on that frame (reported)."""
+def _capturing(A) -> bool:
+    """Whether A's work is going into a CUDA graph now (no read allowed)."""
+    import torch
+
+    return A.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+@contextlib.contextmanager
+def _dlt_held_to_torch_linalg(frames: int):
+    """While open, the step's DLT eigh (pipeline.step_eigh's `eigh_finite`:
+    cuSOLVER on the card) is also run through torch.linalg.eigh on the same
+    systems for its first `frames` calls outside a capture (in the
+    headline: the eager warm-up's first frames, from the bootstrap state
+    with the run's own draws), and the two are compared bit for bit on the
+    finite systems (a non-finite one is the identity on both routes and its
+    result is thrown away). Yields the records, one a call."""
     import torch
 
     from vo_tpu_torch.models import pipeline
-    from vo_tpu_torch.ops import cusolver, linalg
+    from vo_tpu_torch.ops import linalg
 
-    state = pipeline.map_state(
-        lambda x: x[None], run.rollouts.state, rng=[torch.Generator(device=dev).manual_seed(0)],
-        rec_rng=[torch.Generator(device=dev).manual_seed(1)])
-    image = torch.as_tensor(run.seq.get_frame(3), device=dev)[None]
-    K = torch.as_tensor(run.seq.K, device=dev)[None]
-    a = pipeline.step_track(state, image, K, cfg)
-    _, dlt = linalg._finite_rows(pipeline.step_locate(state, a, K, cfg).system)
-    got, want = cusolver.syev_batched(dlt), torch.linalg.eigh(dlt)
-    routes = dict(dlt_shape=list(dlt.shape), dlt_equal=all(map(torch.equal, got, want)),
-                  dlt_max_abs=max(_max_diff(g, w) for g, w in zip(got, want)), recovery=[])
+    real = pipeline.eigh_finite
+    calls = []
+
+    def held(A):
+        out = real(A)
+        if len(calls) < frames and not _capturing(A):
+            ok, systems = linalg._finite_rows(A)
+            want = torch.linalg.eigh(systems)
+            pairs = [(o[ok], w[ok]) for o, w in zip(out, want)]
+            calls.append(dict(shape=list(A.shape), finite=int(ok.sum()),
+                              equal=all(torch.equal(o, w) for o, w in pairs),
+                              max_abs=max(_max_diff(o, w) for o, w in pairs)
+                              if bool(ok.any()) else None))
+        return out
+
+    pipeline.eigh_finite = held
+    try:
+        yield calls
+    finally:
+        pipeline.eigh_finite = real
+
+
+@contextlib.contextmanager
+def _routes_held_to_torch_linalg(per_shape: int):
+    """While open, the first `per_shape` calls of each of ops/cusolver.py's
+    routines and each shape made outside a capture are also run through
+    torch.linalg (eigh, svd) on the same input and compared bit for bit.
+    Yields {"routine shape": record}."""
+    import torch
+
+    from vo_tpu_torch.ops import cusolver
+
     real = {name: getattr(cusolver, name) for name in ("syev_batched", "gesvdj_batched")}
     plain = {"syev_batched": torch.linalg.eigh, "gesvdj_batched": torch.linalg.svd}
+    routes = {}
 
-    def recording(name):
+    def held(name):
         def call(A):
             out = real[name](A)
-            ref = plain[name](A)
-            routes["recovery"].append(dict(
-                routine=name, shape=list(A.shape), equal=all(map(torch.equal, out, ref)),
-                max_abs=max(_max_diff(o, r) for o, r in zip(out, ref))))
+            r = routes.setdefault(f"{name} {list(A.shape)}",
+                                  dict(calls=0, equal=True, max_abs=0.0))
+            if r["calls"] < per_shape and not _capturing(A):
+                want = plain[name](A)
+                r["calls"] += 1
+                r["equal"] &= all(map(torch.equal, out, want))
+                r["max_abs"] = max(r["max_abs"], _max_diff(tuple(out), tuple(want)))
             return out
         return call
 
     try:
         for name in real:
-            setattr(cusolver, name, recording(name))
-        pipeline.step_recover(state, a, K, cfg, pipeline.recovery_samplers(state.rec_rng, cfg))
+            setattr(cusolver, name, held(name))
+        yield routes
     finally:
         for name, fn in real.items():
             setattr(cusolver, name, fn)
-    print(f"[headline] the DLT's eigh {routes['dlt_shape']} on the card against "
-          f"torch.linalg.eigh: bit-equal {routes['dlt_equal']} (max |diff| "
-          f"{routes['dlt_max_abs']:.3g})")
-    for r in routes["recovery"]:
-        print(f"[headline] R's {r['routine']} {r['shape']} against torch.linalg: bit-equal "
-              f"{r['equal']} (max |diff| {r['max_abs']:.3g})")
-    return routes
 
 
 def _traced_kernels(fn) -> dict:
@@ -964,10 +1010,11 @@ def _recovery_in_the_graph(dev, cfg, fails: list) -> None:
 
     pipeline.eager_branch = counting
     try:
-        t0 = time.perf_counter()
-        _, eager = multiseq.batched_vo_rollout(state, images, Ks, cfg, graph=False)
-        torch.cuda.synchronize()
-        eager_s = time.perf_counter() - t0
+        with _routes_held_to_torch_linalg(ROUTE_CALLS) as routes:
+            t0 = time.perf_counter()
+            _, eager = multiseq.batched_vo_rollout(state, images, Ks, cfg, graph=False)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
     finally:
         pipeline.eager_branch = eager_branch
     rewind()
@@ -981,15 +1028,19 @@ def _recovery_in_the_graph(dev, cfg, fails: list) -> None:
     eager_r = sum(ran for name, ran in taken if name == "R")
     eager_c = sum(ran for name, ran in taken if name == "C")
     print(f"[multiseq] R in the graph: 3 lanes (one fed noise), {steps} steps; eager "
-          f"{eager_s:.2f} s, captured {graph_s:.2f} s with the capture; pose_ok by lane "
-          f"{got.pose_ok.sum(dim=0).tolist()}; R ran on {st.recoveries} frames by the "
-          f"device's count ({eager_r} eager), C on {st.keyframes} ({eager_c}); host syncs "
-          f"{st.syncs}; captured equal to eager {equal}")
+          f"{eager_s:.2f} s (with the route checks), captured {graph_s:.2f} s with the "
+          f"capture; pose_ok by lane {got.pose_ok.sum(dim=0).tolist()}; R ran on "
+          f"{st.recoveries} frames by the device's count ({eager_r} eager), C on "
+          f"{st.keyframes} ({eager_c}); syncs torch's detector reported {st.syncs}; "
+          f"captured equal to eager {equal}")
+    for key, r in routes.items():
+        print(f"[multiseq] the eager run's {key} on the card against torch.linalg, "
+              f"{r['calls']} calls: bit-equal {r['equal']} (max |diff| {r['max_abs']:.3g})")
     print(json.dumps(dict(phase="multiseq", part="recovery_in_graph", steps=steps,
                           fields_equal=equal, recoveries=st.recoveries,
                           eager_recoveries=eager_r, keyframes=st.keyframes,
                           eager_keyframes=eager_c, syncs=st.syncs, graphs=st.graphs,
-                          conditional_nodes=st.conditionals)))
+                          conditional_nodes=st.conditionals, linalg_routes=routes)))
     if not all(equal.values()):
         fails.append(f"R in the graph: captured differs from eager in "
                      f"{[k for k, v in equal.items() if not v]}")

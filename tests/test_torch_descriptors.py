@@ -280,8 +280,7 @@ def test_harris_bootstrap_from_the_same_draws(frames, jax_harris_run):
     key, states, outs = jax_harris_run
     _, _, k_ransac = jax.random.split(key, 3)
     cfg = VOConfig(capacity=CAPACITY, tracker="harris")
-    st, out = tpipe.bootstrap(T(frames[0]), T(frames[2]), T(SPEC.K()), cfg, _replay([k_ransac]),
-                              rec_rng=_replay([]))
+    st, out = tpipe.bootstrap(T(frames[0]), T(frames[2]), T(SPEC.K()), cfg, _replay([k_ransac]))
     want = outs[2]
     assert bool(out.pose_ok) and bool(want.pose_ok)
     for name in ("num_tracked", "num_triangulated", "num_candidates", "num_pnp_inliers"):

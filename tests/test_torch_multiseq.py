@@ -845,6 +845,33 @@ def test_recovery_frames_leave_the_pnp_stream_where_it_was():
     assert torch.equal(rec.get_state(), st.rec_rng.get_state())
 
 
+def test_recovery_streams_derive_from_the_pnp_samplers():
+    """replicate_state and bootstrap give each lane `recovery_stream` of its
+    PnP generator: one a lane, distinct for distinct seeds, the same for
+    the same seed. A replaying PnP sampler gets none, and a step that
+    would draw for the recovery says so until the caller sets one."""
+    cfg = small_cfg()
+    frames = noise_frames(0, 4)
+    st = _bootstrap(frames, 7)
+    want = tpipe.recovery_stream(torch.Generator().manual_seed(7))
+    assert torch.equal(st.rec_rng.get_state(), want.get_state())
+    gens = [torch.Generator().manual_seed(s) for s in (7, 8, 7)]
+    states = tmulti.replicate_state(st, 3, gens)
+    assert states.rng == gens and len(states.rec_rng) == 3
+    seeds = [g.initial_seed() for g in states.rec_rng]
+    assert seeds[0] == seeds[2] == st.rec_rng.initial_seed() != seeds[1]
+    assert seeds[1] != gens[1].initial_seed()
+
+    replayed = tpipe.bootstrap(T(frames[0]), T(frames[2]), T(K_SMALL), cfg,
+                               _CountingSampler(7))[0]
+    assert replayed.rec_rng is None
+    with pytest.raises(ValueError, match="rec_rng"):
+        tpipe.vo_step(replayed, T(frames[3]), T(K_SMALL), cfg)
+    _, out = tpipe.vo_step(replayed._replace(rec_rng=torch.Generator().manual_seed(1)),
+                           T(frames[3]), T(K_SMALL), cfg)
+    assert bool(torch.isfinite(out.pose).all())
+
+
 # ---------------------------------------------------------------------------
 # (g) what is not ported, and the run_multiseq_torch.py script
 # ---------------------------------------------------------------------------

@@ -137,3 +137,30 @@ def test_pose_graph_bench():
     assert out["err_last"] < out["err0"]
     assert out["dist_ranks"] == 1 and out["dist_backend"] == "gloo" and out["dist_equal"]
     assert not torch.distributed.is_initialized()
+
+
+def test_chip_smoke_holds_the_step_eigh_to_torch_linalg():
+    """chip_smoke.py's DLT gate on a 160x120 city: the step's eigh is held
+    to torch.linalg.eigh on its own systems for the first calls of an eager
+    rollout from the bootstrap (here both routes are LAPACK, so equal), the
+    finite systems counted; the rollout's outputs are those without the
+    hook, and the step's eigh is put back after."""
+    import chip_smoke
+    from vo_tpu_torch.models import pipeline
+
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, width=160, height=120, focal=104.0)
+    seq = tsyn.render_sequence(spec, CPU, 7)
+    cfg = VOConfig(capacity=256)
+    state = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg,
+                               torch.Generator().manual_seed(3))[0]
+    rewind = pipeline.rewinder(state)
+    _, plain = pipeline.vo_rollout(state, seq.frames[3:], seq.K, cfg)
+    rewind()
+    real = pipeline.eigh_finite
+    with chip_smoke._dlt_held_to_torch_linalg(2) as calls:
+        _, held = pipeline.vo_rollout(state, seq.frames[3:], seq.K, cfg)
+    assert pipeline.eigh_finite is real
+    assert [c["shape"] for c in calls] == [[1, 256, 4, 4]] * 2
+    assert all(c["equal"] and c["max_abs"] == 0.0 and c["finite"] > 0 for c in calls)
+    for name, x, y in zip(plain._fields, plain, held):
+        assert torch.equal(x, y), name

@@ -60,8 +60,13 @@ Static buffers and the hazards they bring:
   read). On the card the count is held against the graph itself at
   capture: it must hold one node of each kernel for every launch counted,
   and its bodies none (`check_recorded`), or the capture raises.
-- A host sync during the chunk's frames is counted (torch's sync debug
-  mode, `RunnerStats.syncs`): there is none to count.
+- No host read during the chunk's frames: what the frame loop runs is a
+  replay, copies between device buffers and the draws, none of which reads
+  the device. `RunnerStats.syncs` holds what torch's sync debug mode
+  reported over those frames, a second look and no proof: torch calls that
+  detector a prototype that misses some syncs, and it is a process-wide
+  setting (the mode and the warnings filter are swapped for the chunk, so
+  rollouts on two threads at once would see each other's).
 
 The capture mechanism is injectable. `CudaGraphs` captures on the card.
 `StandIn` is its CPU twin for the tests: "capture" runs a segment once and
@@ -323,7 +328,8 @@ class CudaGraphs:
         self.bodies[node.value] = [body.value]
 
     def count_syncs(self, fn: Callable[[], None]) -> int:
-        """fn() under torch's sync debug mode: the host syncs torch reported."""
+        """fn() under torch's sync debug mode ("warn"): the syncs that
+        torch's detector reported (it does not see every kind)."""
         before = torch.cuda.get_sync_debug_mode()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -381,7 +387,7 @@ class RunnerStats:
     graphs: dict = dataclasses.field(default_factory=dict)  # "frame", "R", "C" -> nodes
     conditionals: int | None = None  # IF nodes in the frame's graph (None: not read)
     frames: int = 0
-    syncs: int = 0  # host syncs during the chunks' frames
+    syncs: int = 0  # syncs torch's detector reported during the chunks' frames
     taken: torch.Tensor | None = None  # (2,) frames on which R, C ran: device counts
 
     @property
@@ -538,7 +544,7 @@ class GraphedRollout:
             if isinstance(r, torch.Generator):
                 mine[b] = drawn[b]
                 gens.append((b, r))
-            elif self.capture.reruns_python:
+            elif r is not None and self.capture.reruns_python:
                 mine[b] = r
             else:
                 raise ValueError(f"a captured rollout draws from torch.Generators; lane {b}'s "

@@ -154,15 +154,12 @@ def recovery_stream(rng: Samplers) -> Samplers:
     """The recovery's sampler(s) for PnP sampler(s) `rng` where the caller
     gives none: for each torch.Generator a new generator on its device,
     seeded from its seed (`_RECOVERY_SEED`). A replaying sampler has no such
-    counterpart: the caller passes the recovery's own. None stays None (a
-    state compared, never stepped)."""
-    if rng is None:
-        return None
+    counterpart and gets None: the caller sets the recovery's own
+    (`state._replace(rec_rng=...)`) before a step needs it."""
     if is_lane_samplers(rng):
         return [recovery_stream(r) for r in rng]
     if not isinstance(rng, torch.Generator):
-        raise ValueError(f"the PnP sampler is {type(rng).__name__}, not a torch.Generator: "
-                         "pass the recovery's sampler (rec_rng) too")
+        return None
     gen = torch.Generator(device=rng.device)
     return gen.manual_seed(rng.initial_seed() ^ _RECOVERY_SEED)
 
@@ -177,6 +174,9 @@ def recovery_samplers(rec_rng: Samplers, cfg: VOConfig) -> list:
     """This step's recovery samplers, one a lane: a generator's uniforms are
     drawn NOW (`draw_uniforms`, whether or not R will run) and handed to R
     as `Drawn`; a replaying sampler is passed on as it is."""
+    if any(r is None for r in rec_rng):
+        raise ValueError("a lane has no recovery sampler (state.rec_rng is None): "
+                         "`recovery_stream` gives none for a replaying PnP sampler")
     rows, cols = recovery_shape(cfg)
     return [Drawn(draw_uniforms(r, rows, cols)) if isinstance(r, torch.Generator) else r
             for r in rec_rng]
@@ -384,17 +384,14 @@ def bootstrap(
     K: torch.Tensor,
     cfg: VOConfig,
     rng: Samplers,
-    rec_rng: Samplers | None = None,
 ) -> tuple[VOState, StepOutput]:
     """Initialize the map from two (non-adjacent) frames of ONE sequence.
     The world frame is camera 0; the bootstrap baseline is fixed to |t| = 1.
     The bootstrap's RANSAC draws from `rng`, which PnP goes on drawing from;
-    `rec_rng` is the recovery's stream (default `recovery_stream(rng)`).
+    the recovery's stream is `recovery_stream(rng)`.
     The lanes of a multi-sequence run are bootstrapped one by one and
     stacked (parallel/multiseq.py `stack_states`)."""
     _check_tracker(cfg)
-    if rec_rng is None:
-        rec_rng = recovery_stream(rng)
     dev = image0.device
     kcap = cfg.capacity
     kps = _detect_mode(image0, cfg)
@@ -463,7 +460,7 @@ def bootstrap(
         frame_idx=_i32(gap, dev),
         next_uid=_i32(kcap, dev),
         rng=rng,
-        rec_rng=rec_rng,
+        rec_rng=recovery_stream(rng),
         window=window,
         last_kf_idx=_i32(gap, dev),
         kf_adaptive=torch.tensor(cfg.ba.keyframe_mode == "adaptive", device=dev),

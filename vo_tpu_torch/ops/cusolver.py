@@ -70,15 +70,19 @@ _SIGNATURES = {
 
 
 def library_path() -> str:
-    """The libcusolver that this process's torch loaded (so the routines are
-    the very ones `torch.linalg` calls), else the CUDA toolkit's."""
-    torch.cuda.init()
+    """The libcusolver that this process's torch loaded, so the routines are
+    the very ones `torch.linalg` calls. One small `torch.linalg.eigh` on
+    the card first makes torch load it (where it loads it lazily); a
+    process whose torch still has none raises: another build of cuSOLVER
+    could give other bits."""
+    torch.linalg.eigh(torch.ones((1, 1), device="cuda"))
     with open("/proc/self/maps") as maps:
         for line in maps:
             path = line.split()[-1]
             if "/libcusolver.so" in path:
                 return path
-    return "/usr/local/cuda/lib64/libcusolver.so"
+    raise RuntimeError("torch has loaded no libcusolver after a torch.linalg.eigh on the "
+                       "card: its cuSOLVER routines cannot be called")
 
 
 @functools.lru_cache(maxsize=None)

@@ -38,19 +38,16 @@ from vo_tpu_torch.parallel.mesh import all_gather, axis_index, axis_size, local_
 from vo_tpu_torch.utils.config import VOConfig
 
 
-def replicate_state(state: VOState, batch: int, samplers: Sequence[Sampler],
-                    rec_samplers: Sequence[Sampler] | None = None) -> VOState:
+def replicate_state(state: VOState, batch: int, samplers: Sequence[Sampler]) -> VOState:
     """Tile a single-sequence VOState into a batched one (leading axis B).
     `samplers` are the B independent RANSAC samplers of the lanes (where the
-    reference splits the state's key B ways), `rec_samplers` their recovery
-    streams (default `recovery_stream(samplers)`)."""
+    reference splits the state's key B ways); each lane's recovery stream is
+    `recovery_stream` of its sampler."""
     samplers = list(samplers)
-    rec_samplers = list(recovery_stream(samplers) if rec_samplers is None else rec_samplers)
-    if len(samplers) != batch or len(rec_samplers) != batch:
-        raise ValueError(f"{batch} lanes need {batch} samplers of each kind, got "
-                         f"{len(samplers)} and {len(rec_samplers)}")
+    if len(samplers) != batch:
+        raise ValueError(f"{batch} lanes need {batch} samplers, got {len(samplers)}")
     return map_state(lambda x: x[None].expand((batch,) + x.shape).contiguous(), state,
-                     rng=samplers, rec_rng=rec_samplers)
+                     rng=samplers, rec_rng=recovery_stream(samplers))
 
 
 def stack_states(states: Sequence[VOState]) -> VOState:

@@ -2,8 +2,7 @@
 """Smoke test of vo_tpu_torch on one CUDA GPU — the quickest proof that the
 port builds, agrees with its plain PyTorch versions, and runs its main path.
 
-    python3 chip_smoke.py            # full runs but multiseq, harris (60 frames), data (120)
-    python3 chip_smoke.py --multiseq-frames 600 --harris-frames 600 --data-frames 600
+    python3 chip_smoke.py            # every phase at full length (the tools phase cut)
     python3 chip_smoke.py --frames 60 --multiseq-frames 40 --harris-frames 60 \
         --sift-frames 24 --loop-frames 100        # a short rehearsal
 
@@ -74,7 +73,7 @@ Phases:
      lockstep in chunks of 64 (captured), then the distorted-lens lane on
      its own; gates the batched launch counts, finiteness, per-lane pose_ok,
      every lane bit-equal to the same lanes rolled eagerly and, at the full
-     600 frames a lane (`--multiseq-frames 600`; 60 by default), the ATE;
+     600 frames a lane (the default; `--multiseq-frames` cuts it), the ATE;
      then R inside the graph: three lanes at capacity 512, the third fed
      seeded noise from frame 3 (lost on every frame), 20 steps captured
      against eager bit for bit, the device's count of R's frames equal to
@@ -88,8 +87,8 @@ Phases:
      PIL where it cannot build). (b) `generate` writes the first 60 frames
      of the default city; `run_vo_torch.py --dataset parking` over them and
      `--dataset synthetic` give the same poses bit for bit, and K.txt gives
-     spec.K(). (c) the city under varying lighting (its first 120 frames;
-     `--data-frames 600` for all), written by `generate` and run from disk
+     spec.K(). (c) the city under varying lighting (all 600 frames;
+     `--data-frames` cuts it), written by `generate` and run from disk
      (`--chunk 16`, the decode-ahead ring where the native loader built): K1
      steps + 1 and K2 4 x that launches, finite, 0 frozen, pose_ok on all
      but 7 frames, and at 600 frames ATE below max(3 x the headline's ATE,
@@ -97,13 +96,28 @@ Phases:
      40 steps: `--sweep 1`, then six dataset lanes (`--sequences a,...,f`,
      seeds 2023 + i; the sweep's B = 6 would run them again on the one
      clip); K1b once and K2b four times a batched step (B = 1 launches K1
-     and K2), finite lanes, each lane's ATE <= 2 m;
+     and K2), finite lanes, each lane's ATE <= 2 m. (e) the JAX package's
+     last three public helpers in the port, which hold no kernel
+     (ops/image.py `to_grayscale`, `gaussian_kernel1d`, ops/triangulate.py
+     `depths_in_frame`), on the card against their CPU results on seeded
+     inputs: a 480x640 RGB frame in both channel orders (atol 1e-4), the
+     taps at four sigmas (rtol 1e-6), 1,024 points under 3 poses (rtol
+     1e-6, atol 1e-5);
  10. `harris`, `sift`, `loop`: the entry point `run_vo_torch.py` through its
      own `run` function, at full width (640x480, capacity 1024). `harris`:
-     `--tracker harris` over the first 60 frames of the city
-     (`--harris-frames 600` for the whole; the corner kernel's
-     (harris, 7, 5) instance twice at bootstrap and once a step, no gather
-     launch), then its first 40 frames again, bit-equal. `sift`: `--tracker
+     `--tracker harris` over the 600-frame city with a checkpoint after
+     every chunk (the corner kernel's (harris, 7, 5) instance twice at
+     bootstrap and once a step, no gather launch; ATE <= 40 m, pose_ok >=
+     60%); the frames on which the recovery R ran, as the device counted
+     them, equal to the frames that lost their pose, and at least one at
+     full length; the checkpoint written before R's first chunk resumed
+     eagerly (`--no-graph`) for two chunks or more, until R has run 4
+     times (at most 8 chunks), poses and table bit-equal to the captured
+     run; R's inputs and drawn uniforms on its first 4 frames kept from
+     that eager run and R run again on the card and on the CPU: the
+     rotation and translation between the two poses, both inlier counts
+     and whether each side took R's pose are reported, only finiteness
+     gated; then its first 40 frames again, bit-equal. `sift`: `--tracker
      sift` over the first 150 frames (no kernel launch at all). `loop`:
      `--spec loop --pose-graph --chunk 16` over the 1,169-frame closed
      circuit (KLT + BA + the Sim(3) pose-graph back-end), gating the launch
@@ -164,6 +178,9 @@ REFERENCE_ATE_M = 1.181  # tools/headline_expected.json (the JAX package)
 ATE_GATE_M = 1.77  # 1.5x the reference, just above its 1.753 m regression
 POSE_OK_SLACK = 7  # pose_ok must hold on all but this many frames
 TRACED_FRAMES = 8  # frames of captured replays traced by torch.profiler
+# The default city's length: the harris, multiseq and data (c) phases run it
+# whole by default, and their ATE gates apply only there.
+CITY_FRAMES = 600
 
 # Shapes: not a multiple of the kernel's tile, less than one tile, full size.
 K1_SHAPES = [(150, 260), (64, 200), (30, 40), (480, 640)]
@@ -202,8 +219,10 @@ ROUTE_CALLS = 4  # calls of each cuSOLVER routine and shape held to torch.linalg
 # (EVAL.md, taken on a TPU): yardsticks of ACCURACY only.
 HARRIS_REFERENCE_ATE_M = 4.237  # --tracker harris, 600 frames, one draw
 # The harris tracker's ATE and pose_ok share follow the RANSAC draw, not the
-# port: five seeds on an H100 gave 4.14-31.73 m and 459-597 of 597 frames,
-# and the JAX package itself, in float32 on a CPU over the same frames
+# port: seeds 2023 and 1-4 (tools/tracker_seeds_torch.py) on an NVIDIA H100
+# 80GB HBM3 at 700 W, with the recovery on its own stream, gave 7.01-36.20 m
+# and 430-597 of 597 frames, the recovery on 0-167 of them; the JAX package
+# itself, in float32 on a CPU over the same frames
 # (tests/torch_reference_tracker_run.py), gave 4.87-32.72 m with 476-525
 # frames over three keys: in both the map starves at the second turn
 # (PERF.md). Twice the yardstick is printed beside the reading; what fails
@@ -220,6 +239,12 @@ LOOP_MIN_NODES = 70  # one keyframe a 16-frame chunk: 73
 LOOP_MIN_LOOPS = 3  # the JAX package verified 9
 LOOP_CHECKPOINT_EVERY = 600
 REPEAT_FRAMES = 40  # the harris prefix that is run again, bit-equal
+HARRIS_CHUNK = 16  # frames a chunk of the harris run; a checkpoint after each
+# R's first frames whose inputs from the card are run again on the CPU, and
+# the most chunks the eager resume from before R's first chunk runs to reach
+# them (at least two).
+R_HELD_FRAMES = 4
+R_EAGER_MAX_CHUNKS = 8
 RUN_POSE_OK_SHARE = 0.95
 
 # The distributed phase. Full width: a 1,024-observation pose, the headline's
@@ -233,12 +258,11 @@ DIST_CLUSTER_TIMEOUT_S = 300
 # The JAX package's --seqpar-shards 2 (README.md, a CPU run): accuracy only.
 SEQPAR_YARDSTICK = {"ate_no_refine_m": 0.298, "ate_seqpar_m": 0.051}
 # The data phase: the default city written to disk and read back. (b) cuts
-# it to 60 frames; (c) writes it under varying lighting, the first 120
-# frames by default (all 600, where its ATE gate applies, with
-# --data-frames 600); (d) runs the dataset lanes over (c)'s layout.
+# it to 60 frames; (c) writes all of it under varying lighting (its ATE gate
+# applies only there; --data-frames cuts it); (d) runs the dataset lanes
+# over (c)'s layout; (e) holds the helpers that hold no kernel on the card
+# to their CPU results (seeded inputs).
 DATA_EQUAL_FRAMES = 60
-DATA_FRAMES = 600
-DATA_DEFAULT_FRAMES = 120
 DATA_CHUNK = 16
 DATA_DECODE_CHECK = 8  # frames decoded by two decoders, bit for bit
 # tests/test_lighting.py's gate: varying lighting within 3x the ATE of the
@@ -246,6 +270,11 @@ DATA_DECODE_CHECK = 8  # frames decoded by two decoders, bit for bit
 LIGHTING_ATE_FACTOR, LIGHTING_ATE_FLOOR_M = 3.0, 0.35
 DATA_LANES, DATA_LANE_CAPACITY, DATA_LANE_STEPS = 6, 512, 40
 DATA_LANE_ATE_M = 2.0  # the multiseq floor
+HELPERS_SEED = 11
+HELPERS_SIGMAS, HELPERS_RADII = (0.5, 1.0, 1.6, 3.0), (None, 2)
+HELPERS_POSES, HELPERS_POINTS = 3, 1024
+HELPERS_GRAY_ATOL = 1e-4  # on the 0-255 scale: the dot's sums run in another order
+HELPERS_RTOL, HELPERS_DEPTH_ATOL = 1e-6, 1e-5
 # The bench phase: KITTI 05's frame size and focal length (the JAX harness's
 # flagship step, __graft_entry__.py) and the probe's 6 frames; the
 # solver pairs' agreement (tests/test_torch_tools.py's tolerance).
@@ -873,7 +902,7 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
 
     cfg = VOConfig(capacity=MULTISEQ_CAPACITY)
     levels = cfg.klt.pyramid_levels
-    full = n_frames == 600
+    full = n_frames == CITY_FRAMES
     fails = []
 
     t0 = time.perf_counter()
@@ -1460,7 +1489,7 @@ def phase_data(dev, n_frames: int, records: dict) -> None:
         headline = HANDOFF.get("headline_ate", ATE_GATE_M)
         gate = max(LIGHTING_ATE_FACTOR * headline, LIGHTING_ATE_FLOOR_M)
         line.update(ate_gate_m=gate, headline_ate_m=headline)
-        if n_frames == DATA_FRAMES and not done.result.get("ate_rmse_m", np.inf) < gate:
+        if n_frames == CITY_FRAMES and not done.result.get("ate_rmse_m", np.inf) < gate:
             fails.append(f"(c) ATE {done.result.get('ate_rmse_m')} m not below {gate:.3f} m")
         print(json.dumps(line))
         records["corner_response_nms"]["launches_data"] = counts["corner_response_nms"]
@@ -1518,8 +1547,56 @@ def phase_data(dev, n_frames: int, records: dict) -> None:
         _free()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps(dict(phase="data", part="helpers", **_helpers_held(dev, fails))))
     if fails:
         raise AssertionError("; ".join(fails))
+
+
+def _helpers_held(dev, fails: list) -> dict:
+    """(e) The JAX package's last three public helpers in the port, none of
+    which holds a kernel (ops/image.py `to_grayscale`, `gaussian_kernel1d`;
+    ops/triangulate.py `depths_in_frame`): on `dev` against their CPU
+    results on seeded inputs. Returns the largest errors."""
+    import torch
+
+    from vo_tpu_torch.ops.image import gaussian_kernel1d, to_grayscale
+    from vo_tpu_torch.ops.triangulate import depths_in_frame
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(HELPERS_SEED)
+    frame = torch.from_numpy(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8))
+    gray = {order: _max_diff(to_grayscale(frame.to(dev), order).cpu(),
+                             to_grayscale(frame, order))
+            for order in ("rgb", "bgr")}
+    if not all(d <= HELPERS_GRAY_ATOL for d in gray.values()):
+        fails.append(f"(e) to_grayscale differs from the CPU's by {gray}")
+    taps = {}
+    for sigma in HELPERS_SIGMAS:
+        for radius in HELPERS_RADII:
+            got = gaussian_kernel1d(sigma, radius, device=dev).cpu()
+            want = gaussian_kernel1d(sigma, radius, device=cpu)
+            taps[f"{sigma}/{radius}"] = float(((got - want).abs() / want.abs()).max())
+            if got.shape != want.shape or not torch.allclose(got, want, rtol=HELPERS_RTOL,
+                                                             atol=0.0):
+                fails.append(f"(e) gaussian_kernel1d({sigma}, {radius}) differs from the "
+                             f"CPU's: {got.tolist()} against {want.tolist()}")
+    # Random rotations (QR, det +1), translations within 10 m, points within 50 m.
+    q, r = np.linalg.qr(rng.normal(size=(HELPERS_POSES, 3, 3)))
+    q *= np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[np.linalg.det(q) < 0, :, 0] *= -1
+    T = np.tile(np.eye(4), (HELPERS_POSES, 1, 1))
+    T[:, :3, :3], T[:, :3, 3] = q, rng.uniform(-10, 10, (HELPERS_POSES, 3))
+    T_cw = torch.from_numpy(T.astype(np.float32))[:, None]  # (3, 1, 4, 4): a pose a row
+    X = torch.from_numpy(rng.uniform(-50, 50, (HELPERS_POSES, HELPERS_POINTS, 3))
+                         .astype(np.float32))
+    want = depths_in_frame(T_cw, X)
+    got = depths_in_frame(T_cw.to(dev), X.to(dev)).cpu()
+    depth = _max_diff(got, want)
+    if got.shape != want.shape or not torch.allclose(got, want, rtol=HELPERS_RTOL,
+                                                     atol=HELPERS_DEPTH_ATOL):
+        fails.append(f"(e) depths_in_frame differs from the CPU's by {depth}")
+    return dict(gray_max_abs=gray, taps_max_rel=taps, depths_max_abs=depth,
+                depths_shape=list(got.shape))
 
 
 def _drive(argv, observer=None):
@@ -1560,34 +1637,84 @@ def _free() -> None:
 
 def phase_harris(dev, n_frames: int, records: dict) -> None:
     """`run_vo_torch.py --tracker harris`: Harris detection through the
-    corner kernel's (harris, 7, 5) instance, matched-patch tracking."""
+    corner kernel's (harris, 7, 5) instance, matched-patch tracking. The
+    tracker starves at the city's second turn, so the recovery R runs on
+    real frames inside the frame's graph: its frames are counted on the
+    device, the chunks from the one where R first ran are run again eagerly
+    from the checkpoint before them, and R's first frames again on the CPU."""
+    from vo_tpu_torch.models import graphed
     from vo_tpu_torch.ops import kernels
 
     fails = []
-    kernels.reset_launch_counts()
-    done = _drive(["--tracker", "harris", "--chunk", "16", "--quiet",
-                   "--max-frames", str(n_frames)])
-    counts = dict(kernels.launch_counts)
-    line = dict(phase="harris", **_run_gates("harris", done, fails, HARRIS_POSE_OK_SHARE),
-                **done.result, launches=counts)
-    steps = line["steps"]
-    want = {"corner_response_nms": 2 + steps, "extract_patches": 0,
-            "corner_response_nms_batched": 0, "extract_patches_batched": 0}
-    if counts != want:
-        fails.append(f"launches {counts}, want {want}")
-    ate = done.result.get("ate_rmse_m", np.inf)
-    line.update(ate_yardstick_m=HARRIS_REFERENCE_ATE_M,
-                ate_within_twice_yardstick=bool(ate <= 2.0 * HARRIS_REFERENCE_ATE_M),
-                ate_limit_m=HARRIS_ATE_LIMIT_M)
-    if n_frames == 600 and not ate <= HARRIS_ATE_LIMIT_M:
-        fails.append(f"ATE {ate} m above the {HARRIS_ATE_LIMIT_M} m limit")
-    records["corner_response_nms"]["launches_harris"] = counts["corner_response_nms"]
-    records["extract_patches"]["launches_harris"] = counts["extract_patches"]
+    base = ["--tracker", "harris", "--chunk", str(HARRIS_CHUNK), "--quiet"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, before_r = str(Path(tmp) / "harris.npz"), str(Path(tmp) / "before_r.npz")
+        seen = {}
+
+        def observer(frame, state, backend):
+            # Until R first runs, keep the checkpoint of the chunk's end
+            # (the one before R's first chunk, once it does); from there,
+            # the table where the eager resume is to stop.
+            taken = graphed.summary()["recoveries"]  # a device read, between chunks
+            if "r_chunk" not in seen:
+                if taken:
+                    seen.update(r_chunk=frame, chunks=1)
+                else:
+                    for suffix in ("", ".json"):
+                        shutil.copyfile(ckpt + suffix, before_r + suffix)
+                    seen["ckpt_frame"] = frame
+            elif "upto" not in seen:
+                seen["chunks"] += 1
+                if taken >= R_HELD_FRAMES or seen["chunks"] == R_EAGER_MAX_CHUNKS:
+                    seen.update(upto=frame, table=[f.clone() for f in state.table])
+
+        kernels.reset_launch_counts()
+        done = _drive(base + ["--max-frames", str(n_frames), "--checkpoint", ckpt,
+                              "--checkpoint-every", str(HARRIS_CHUNK)], observer)
+        counts = dict(kernels.launch_counts)
+        line = dict(phase="harris", **_run_gates("harris", done, fails, HARRIS_POSE_OK_SHARE),
+                    **done.result, launches=counts)
+        steps = line["steps"]
+        want = {"corner_response_nms": 2 + steps, "extract_patches": 0,
+                "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+        if counts != want:
+            fails.append(f"launches {counts}, want {want}")
+        ate = done.result.get("ate_rmse_m", np.inf)
+        line.update(ate_yardstick_m=HARRIS_REFERENCE_ATE_M,
+                    ate_within_twice_yardstick=bool(ate <= 2.0 * HARRIS_REFERENCE_ATE_M),
+                    ate_limit_m=HARRIS_ATE_LIMIT_M)
+        if n_frames == CITY_FRAMES and not ate <= HARRIS_ATE_LIMIT_M:
+            fails.append(f"ATE {ate} m above the {HARRIS_ATE_LIMIT_M} m limit")
+        records["corner_response_nms"]["launches_harris"] = counts["corner_response_nms"]
+        records["extract_patches"]["launches_harris"] = counts["extract_patches"]
+
+        # (a) R's frames as the device counted them. R runs where PnP lost
+        # the pose; with no frozen frame those are the frames not pose_ok.
+        recoveries = done.result["graphs"]["recoveries"]
+        lost = [s["frame"] for s in done.stats if not s["ok"]]
+        line.update(recoveries=recoveries, first_lost=lost[:12],
+                    eager_equal_on_R_chunks=None, R_card_vs_cpu=[])
+        if done.result["executor"] != "graphs":
+            fails.append(f"the run ran {done.result['executor']}, not the captured graphs")
+        if recoveries != len(lost):
+            fails.append(f"R ran on {recoveries} frames by the device's count, but "
+                         f"{len(lost)} frames lost their pose")
+        if n_frames == CITY_FRAMES and not recoveries:
+            fails.append("R ran on no frame of the run: nothing holds it")
+        if recoveries and "ckpt_frame" not in seen:
+            fails.append(f"R ran in the first chunk (by frame {seen['r_chunk']}): no "
+                         "checkpoint before it to resume")
+        elif recoveries:
+            if "upto" not in seen:  # the run ended first
+                seen.update(upto=done.frame_ids[-1], table=list(done.state.table))
+            line["eager_equal_on_R_chunks"], line["R_card_vs_cpu"] = _harris_r_held(
+                base, before_r, seen, done, fails)
+    if not all(r["finite"] for r in line["R_card_vs_cpu"]):
+        fails.append(f"R's pose non-finite on the card or the CPU: {line['R_card_vs_cpu']}")
 
     # The first frames again: a seeded run reproduces bit for bit.
     n_rep = min(REPEAT_FRAMES, n_frames)
-    again = _drive(["--tracker", "harris", "--chunk", "16", "--quiet",
-                    "--max-frames", str(n_rep)])
+    again = _drive(base + ["--max-frames", str(n_rep)])
     first = done.poses[:len(again.poses)]
     line["repeat_bit_equal"] = bool(np.array_equal(again.poses, first))
     if not line["repeat_bit_equal"]:
@@ -1598,6 +1725,108 @@ def phase_harris(dev, n_frames: int, records: dict) -> None:
     _free()
     if fails:
         raise AssertionError("; ".join(fails))
+
+
+def _harris_r_held(base: list, ckpt: str, seen: dict, done, fails: list):
+    """(b) The checkpoint `ckpt` (written after frame seen["ckpt_frame"],
+    before R's first chunk) resumed eagerly up to frame seen["upto"]: poses
+    and table bit-equal to the captured run `done`. (c) R's first frames of
+    that eager run kept and run again on the CPU. Returns (bit-equal,
+    R's records)."""
+    import torch
+
+    upto = seen["upto"]
+    with _recovery_inputs_kept(R_HELD_FRAMES) as kept:
+        back = _drive(base + ["--resume", ckpt, "--max-frames", str(upto + 1), "--no-graph"])
+    n_rows = done.frame_ids.index(upto) + 1
+    same_ids = back.frame_ids == done.frame_ids[:n_rows]
+    same_poses = same_ids and bool(np.array_equal(back.poses, done.poses[:n_rows]))
+    same_table = all(torch.equal(a, b) for a, b in zip(back.state.table, seen["table"]))
+    equal = bool(same_poses and same_table and back.result["executor"] == "eager")
+    if not equal:
+        fails.append(f"the eager resume from frame {seen['ckpt_frame']} to {upto} differs "
+                     f"from the captured run: poses {same_poses}, table {same_table}, "
+                     f"executor {back.result['executor']}")
+    # R runs on the eager run's frames that lost their pose, in order.
+    lost = [s["frame"] for s in back.stats if not s["ok"]]
+    if len(kept) != min(len(lost), R_HELD_FRAMES):
+        fails.append(f"R kept {len(kept)} calls over {len(lost)} lost frames")
+    held = _r_card_vs_cpu(kept)
+    for frame, rec in zip(lost, held):
+        rec["frame"] = frame
+    print(f"[harris] eager resume from frame {seen['ckpt_frame']} (R's first chunk ends at "
+          f"{seen['r_chunk']}) to {upto}: bit-equal {equal}; R on {len(lost)} of its frames")
+    del back
+    return equal, held
+
+
+@contextlib.contextmanager
+def _recovery_inputs_kept(calls: int):
+    """While open, the first `calls` calls of the step's recovery
+    (pipeline.recover_pose) outside a capture keep copies of everything R
+    reads (its tensors, the configuration, this step's drawn uniforms) and
+    what it gave. Yields the records, one a call."""
+    from vo_tpu_torch.models import pipeline
+    from vo_tpu_torch.ops.ransac import Drawn
+
+    real = pipeline.recover_pose
+    kept = []
+
+    def keeping(*args):
+        *tensors, cfg, samplers = args  # the tensors R reads and K, cfg, samplers
+        out = real(*args)
+        if len(kept) < calls and not _capturing(tensors[0]):
+            if not all(isinstance(s, Drawn) for s in samplers):
+                raise TypeError("R's samplers are not drawn uniforms: nothing to replay")
+            kept.append(dict(args=[t.clone() for t in tensors], cfg=cfg,
+                             uniforms=[s.u.clone() for s in samplers],
+                             got=[t.clone() for t in out]))
+        return out
+
+    pipeline.recover_pose = keeping
+    try:
+        yield kept
+    finally:
+        pipeline.recover_pose = real
+
+
+def _r_card_vs_cpu(kept: list) -> list:
+    """R (pipeline.recover_pose) run again over each record of
+    `_recovery_inputs_kept`, with its uniforms replayed, on the device it
+    was kept on and on the CPU, lane 0. Per record: the rotation
+    angle (degrees) and translation distance (m) between the two sides' R
+    poses, beside the step length both pin it to (`last_speed`, m), both
+    inlier counts, whether each side took R's pose, whether the pose each
+    side carries on is finite, and whether the rerun on the kept device
+    gave the step's own results bit for bit."""
+    import torch
+
+    from vo_tpu_torch.models import pipeline
+    from vo_tpu_torch.ops.ransac import Drawn
+
+    out = []
+    for rec in kept:
+        sides = []
+        for dev in (rec["args"][0].device, torch.device("cpu")):
+            sides.append(pipeline.recover_pose(
+                *(t.to(dev) for t in rec["args"]), rec["cfg"],
+                [Drawn(u.to(dev)) for u in rec["uniforms"]]))
+        card, cpu = (pipeline.Recovered(*(f[0].cpu().double().numpy() for f in side))
+                     for side in sides)
+        Ra, Rb = card.pose[:3, :3], cpu.pose[:3, :3]
+        # 2 asin(|Ra - Rb|_F / (2 sqrt 2)) is the angle of Ra^T Rb, exact near 0.
+        chord = np.linalg.norm(Ra - Rb) / (2.0 * np.sqrt(2.0))
+        angle = float(np.degrees(2.0 * np.arcsin(min(chord, 1.0))))
+        trans = float(np.linalg.norm(card.pose[:3, 3] - cpu.pose[:3, 3]))
+        out.append(dict(
+            angle_deg=angle if np.isfinite(angle) else None,
+            trans_m=trans if np.isfinite(trans) else None,
+            speed_m=float(rec["args"][4][0]),
+            inliers_card=int(card.num_inliers), inliers_cpu=int(cpu.num_inliers),
+            took_card=bool(card.took), took_cpu=bool(cpu.took),
+            finite=bool(np.isfinite(card.pose_fb).all() and np.isfinite(cpu.pose_fb).all()),
+            card_equals_step=all(torch.equal(a, b) for a, b in zip(sides[0], rec["got"]))))
+    return out
 
 
 def phase_sift(dev, n_frames: int, records: dict) -> None:
@@ -1958,27 +2187,24 @@ def phase_dist(dev, records: dict) -> None:
         raise AssertionError("; ".join(fails))
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--frames", type=int, default=600,
                         help="length of the headline sequence (default 600)")
-    parser.add_argument("--multiseq-frames", type=int, default=60,
-                        help="frames per lane of the multi-sequence phase (default "
-                             "60, to keep the script inside its time on a slow host; "
-                             "the ATE gates apply only at the full length of 600)")
-    parser.add_argument("--harris-frames", type=int, default=60,
-                        help="frames of the harris-tracker run (default 60, to keep the "
-                             "script inside its time with the headline's second rollout "
-                             "and the bench phase; the ATE gate applies only at the full "
-                             "length of 600)")
+    parser.add_argument("--multiseq-frames", type=int, default=CITY_FRAMES,
+                        help=f"frames per lane of the multi-sequence phase (default "
+                             f"{CITY_FRAMES}; the ATE gates apply only at that length)")
+    parser.add_argument("--harris-frames", type=int, default=CITY_FRAMES,
+                        help=f"frames of the harris-tracker run (default {CITY_FRAMES}; "
+                             f"the ATE gate and the gate that R ran apply only at that "
+                             f"length)")
     parser.add_argument("--sift-frames", type=int, default=150,
                         help="frames of the sift-tracker run (default 150; the ATE "
                              "gate applies at 150 and at 600)")
-    parser.add_argument("--data-frames", type=int, default=DATA_DEFAULT_FRAMES,
+    parser.add_argument("--data-frames", type=int, default=CITY_FRAMES,
                         help=f"frames of the varying-lighting city the data phase writes "
-                             f"and reads (default {DATA_DEFAULT_FRAMES}, to keep the script "
-                             f"inside its time; the ATE gate applies only at the full "
-                             f"length of {DATA_FRAMES})")
+                             f"and reads (default {CITY_FRAMES}; the ATE gate applies "
+                             f"only at that length)")
     parser.add_argument("--loop-frames", type=int, default=LOOP_FRAMES,
                         help=f"frames of the loop-closure run (default {LOOP_FRAMES}; the "
                              "graph and ATE gates apply only at full length)")
@@ -1992,6 +2218,11 @@ def main(argv=None) -> int:
                         help=f"frames of the stop-and-go city the tools phase's keyframe "
                              f"ablation rolls, from frame {TOOLS_KEYFRAMES_FIRST} (default "
                              f"{TOOLS_KEYFRAMES_FRAMES})")
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = _parser()
     args = parser.parse_args(argv)
     if min(args.frames, args.multiseq_frames, args.harris_frames, args.sift_frames,
            args.loop_frames, args.repro_frames, args.keyframes_frames) < 4 \

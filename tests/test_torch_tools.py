@@ -164,3 +164,51 @@ def test_chip_smoke_holds_the_step_eigh_to_torch_linalg():
     assert all(c["equal"] and c["max_abs"] == 0.0 and c["finite"] > 0 for c in calls)
     for name, x, y in zip(plain._fields, plain, held):
         assert torch.equal(x, y), name
+
+
+def test_chip_smoke_runs_the_city_whole_by_default():
+    """The harris, multiseq and data (c) phases run the 600-frame city by
+    default, the length at which their ATE gates (and harris's gate that R
+    ran) apply."""
+    import chip_smoke
+
+    args = chip_smoke._parser().parse_args([])
+    assert args.harris_frames == args.multiseq_frames == args.data_frames == 600
+    assert chip_smoke.CITY_FRAMES == 600 == tsyn.DEFAULT_SPEC.num_frames
+
+
+def test_chip_smoke_reruns_the_recovery_on_its_kept_inputs():
+    """chip_smoke.py's card-against-CPU check of the recovery R, with both
+    sides on the CPU: on the city with PnP's bar out of reach every frame
+    falls back to R; its inputs and drawn uniforms are kept from an eager
+    rollout, and R run again on them gives the step's own results and no
+    difference between the sides (angle and translation exactly 0, the same
+    inlier counts, both take R's pose). At 320x240 R finds the inliers to be
+    taken (at 160x120 it finds 13-22 of the 30 it needs). The rollout's
+    outputs are those without the hook, and R is put back after."""
+    import chip_smoke
+    from vo_tpu_torch.models import pipeline
+
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, width=320, height=240, focal=208.0)
+    seq = tsyn.render_sequence(spec, CPU, 5)
+    cfg = VOConfig(capacity=256)
+    cfg = dataclasses.replace(cfg, pnp=dataclasses.replace(cfg.pnp, min_inliers=10**6))
+    state = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg,
+                               torch.Generator().manual_seed(1))[0]
+    rewind = pipeline.rewinder(state)
+    _, plain = pipeline.vo_rollout(state, seq.frames[3:], seq.K, cfg)
+    rewind()
+    real = pipeline.recover_pose
+    with chip_smoke._recovery_inputs_kept(2) as kept:
+        _, held = pipeline.vo_rollout(state, seq.frames[3:], seq.K, cfg)
+    assert pipeline.recover_pose is real
+    for name, x, y in zip(plain._fields, plain, held):
+        assert torch.equal(x, y), name
+    assert not bool(plain.pose_ok.any()) and len(kept) == 2
+    records = chip_smoke._r_card_vs_cpu(kept)
+    assert len(records) == 2
+    for rec in records:
+        assert rec["angle_deg"] == 0.0 and rec["trans_m"] == 0.0, rec
+        assert rec["inliers_card"] == rec["inliers_cpu"] > 0, rec
+        assert rec["took_card"] and rec["took_cpu"] and rec["finite"], rec
+        assert rec["card_equals_step"], rec

@@ -12,7 +12,10 @@ Every run is that of the entry point (`run_vo_torch.run`, the 600-frame city at
 Sim(3) pose graph; capacity 1024, chunks of 16) with `run_vo_torch.BOOTSTRAP_SEED` set
 to the seed; the state's sampler is seeded with it at bootstrap and every
 later draw follows. Prints one JSON line per seed: the run's result line
-plus the seed, the pose_ok count and the first frames that lost their pose.
+plus the seed, the pose_ok count, the first frames that lost their pose and
+`recoveries`, the frames on which the recovery ran (counted on the device
+where the run replayed its graphs, else the frames that lost their pose:
+the eager step runs it exactly there). Each seed captures its own graphs.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import run_vo_torch
+    from vo_tpu_torch.models import graphed
 
     base = ["--tracker", args.tracker, "--quiet", "--chunk", "16", "--device", args.device,
             "--max-frames", str(args.max_frames), "--spec", args.spec]
@@ -44,13 +48,16 @@ def main(argv=None) -> int:
         ["--pose-graph"] if args.pose_graph else [])
     for seed in (int(s) for s in args.seeds.split(",")):
         run_vo_torch.BOOTSTRAP_SEED = seed
+        graphed.RUNNERS.clear()  # each seed's `graphs` counts its own frames
         rc, done = run_vo_torch.run(run_vo_torch.parse_args(base))
         if rc != 0:
             return rc
         lost = [s["frame"] for s in done.stats if not s["ok"]]
         loops = ([[lp["frame"], lp["matched_frame"]] for lp in done.backend.loops]
                  if done.backend is not None else None)
+        graphs = done.result["graphs"]
         print(json.dumps({"seed": seed, "no_kernels": args.no_kernels, **done.result,
+                          "recoveries": graphs["recoveries"] if graphs else len(lost),
                           "pose_ok": len(done.stats) - len(lost), "steps": len(done.stats),
                           "first_lost_frames": lost[:12], "loops": loops}), flush=True)
         del done

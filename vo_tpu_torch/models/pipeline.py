@@ -772,19 +772,41 @@ def step_recover(state: VOState, a: Tracked, K: torch.Tensor, cfg: VOConfig,
     for all lanes, each on its own recovery sampler of this step
     (`recovery_samplers`); only a lost lane takes the result. Returns the
     new fallback pose."""
-    prev_xy_u = _undistort(state.table.xy, K, cfg)
+    return recover_pose(state.table.xy, a.xy_u, a.tracked, state.pose, state.last_speed,
+                        a.pose_ok, a.pose_fb, K, cfg, samplers).pose_fb
+
+
+class Recovered(NamedTuple):
+    """What segment R computes, lane by lane."""
+
+    pose_fb: torch.Tensor  # (B, 4, 4) the fallback pose: R's where `took`
+    pose: torch.Tensor  # (B, 4, 4) R's pose, taken or not
+    num_inliers: torch.Tensor  # (B,) inliers of the 8-point RANSAC's refit
+    took: torch.Tensor  # (B,) the lane lost its pose and R's pose passed
+
+
+def recover_pose(prev_xy: torch.Tensor, xy_u: torch.Tensor, tracked: torch.Tensor,
+                 pose: torch.Tensor, last_speed: torch.Tensor, pose_ok: torch.Tensor,
+                 pose_fb: torch.Tensor, K: torch.Tensor, cfg: VOConfig,
+                 samplers: Samplers) -> Recovered:
+    """`step_recover` over everything it reads: the last frame's positions
+    (`state.table.xy`), this frame's ideal positions, the tracked slots, the
+    last pose and speed (`state.pose`, `state.last_speed`), PnP's verdict
+    and the constant-velocity fallback (`a.pose_ok`, `a.pose_fb`)."""
+    prev_xy_u = _undistort(prev_xy, K, cfg)
     res = fundamental_ransac(
-        samplers, prev_xy_u, a.xy_u, valid=a.tracked,
+        samplers, prev_xy_u, xy_u, valid=tracked,
         inlier_threshold_px=cfg.recovery.inlier_threshold_px,
         num_hypotheses=cfg.recovery.num_hypotheses,
     )
     E = essential_from_fundamental(res.model, K, K)
-    rp = relative_pose_from_essential(E, prev_xy_u, a.xy_u, K, K, weight=res.inliers)
+    rp = relative_pose_from_essential(E, prev_xy_u, xy_u, K, K, weight=res.inliers)
     T21 = rp.T_21.clone()
-    T21[..., :3, 3] = rp.T_21[..., :3, 3] * state.last_speed[..., None]
-    pose_vis = state.pose @ pose_inverse(T21)
+    T21[..., :3, 3] = rp.T_21[..., :3, 3] * last_speed[..., None]
+    pose_vis = pose @ pose_inverse(T21)
     ok = (res.num_inliers >= cfg.recovery.min_inliers) & _all_finite(pose_vis)
-    return where_lane(ok & ~a.pose_ok, pose_vis, a.pose_fb)
+    took = ok & ~pose_ok
+    return Recovered(where_lane(took, pose_vis, pose_fb), pose_vis, res.num_inliers, took)
 
 
 def step_locate(state: VOState, a: Tracked, K: torch.Tensor, cfg: VOConfig) -> Located:

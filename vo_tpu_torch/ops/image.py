@@ -1,4 +1,4 @@
-"""Image primitives: Sobel, box and Gaussian filters, pyramids,
+"""Image primitives: grayscale, Sobel, box and Gaussian filters, pyramids,
 central-difference gradients, bilinear sampling — port of vo_tpu/ops/image.py.
 
 Images are f32 (H, W) single-channel, or (B, H, W) with a leading lane
@@ -16,6 +16,21 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# BT.601 luma weights — what cv2.cvtColor(BGR2GRAY)/RGB2GRAY uses.
+_LUMA_RGB = (0.299, 0.587, 0.114)
+
+
+def to_grayscale(img: torch.Tensor, channel_order: str = "rgb") -> torch.Tensor:
+    """(H, W[, 3]) uint8/float -> (H, W) f32 grayscale in [0, 255], on
+    img's device."""
+    img = img.to(torch.float32)
+    if img.ndim == 2:
+        return img
+    r, g, b = _LUMA_RGB
+    w = torch.tensor([r, g, b] if channel_order == "rgb" else [b, g, r],
+                     dtype=torch.float32, device=img.device)
+    return torch.tensordot(img, w, dims=([-1], [0]))
 
 
 def _filt1d(img: torch.Tensor, taps, axis: int) -> torch.Tensor:
@@ -54,9 +69,21 @@ def box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
     return _filt1d(_filt1d(img, ones, 0), ones, 1)
 
 
+def gaussian_kernel1d(sigma: float, radius: int | None = None, *,
+                      device: torch.device | str) -> torch.Tensor:
+    """Normalised f32 Gaussian taps over [-radius, radius] (default
+    max(1, ceil(3 sigma))), computed in f32 on `device`."""
+    if radius is None:
+        radius = max(1, int(math.ceil(3.0 * sigma)))
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
 def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) -> torch.Tensor:
     """Separable Gaussian blur, SAME padding (statically unrolled taps,
-    computed in float64 on the host exactly as the reference does)."""
+    computed in float64 on the host exactly as the reference does, not
+    through the f32 `gaussian_kernel1d`)."""
     if radius is None:
         radius = max(1, int(math.ceil(3.0 * sigma)))
     x = np.arange(-radius, radius + 1, dtype=np.float64)

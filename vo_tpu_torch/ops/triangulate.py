@@ -65,3 +65,8 @@ def reprojection_error(P: torch.Tensor, X: torch.Tensor, uv: torch.Tensor) -> to
     Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
     p = (bmat(P, Xh) @ Xh[..., None])[..., 0]
     return torch.linalg.vector_norm(p[..., :2] / _guard(p[..., 2:3], 1e-12) - uv, dim=-1)
+
+
+def depths_in_frame(T_cw: torch.Tensor, X_w: torch.Tensor) -> torch.Tensor:
+    """z-depth of world points in a camera frame. T_cw: (..., 4, 4), X: (..., 3)."""
+    return (T_cw[..., 2, :3] * X_w).sum(-1) + T_cw[..., 2, 3]

@@ -38,10 +38,13 @@ Phases:
      the ATE against exact ground truth; the DLT's eigh on the card
      (ops/cusolver.py) bit-equal to torch.linalg.eigh on the headline's own
      DLT systems: each of the eager warm-up's first 16 steps runs both on
-     its systems (the bootstrap state, the run's own draws); prints both
-     frames/s, the capture's seconds, the graphs and their nodes, the syncs
-     a step that torch's sync detector reported and the frames on which R
-     and C ran, as the device counted them;
+     its systems (the bootstrap state, the run's own draws); the
+     bootstrap's float32 two-view solve (8-point RANSAC, E, cheirality) run
+     again from its kept inputs and uniforms on the card and the CPU,
+     reported and not gated; prints both frames/s, the capture's seconds,
+     the graphs and their nodes, the syncs a step that torch's sync
+     detector reported and the frames on which R and C ran, as the device
+     counted them;
   7b. `bench`: the measurement entry points. (a) K1 and the K2 pair at KITTI
      05's frame size (370x1226) and its pyramid levels against their plain
      versions, timed; (b) bench_torch's `bench_kitti_probe` over the first 6
@@ -78,8 +81,8 @@ Phases:
      seeded noise from frame 3 (lost on every frame), 20 steps captured
      against eager bit for bit, the device's count of R's frames equal to
      the eager step's, no sync reported; the eager run's eighs and SVDs
-     (R's and the DLT's, the first 4 calls of each shape) against
-     torch.linalg, reported;
+     (R's in float64, the DLT's in float32, the first 4 calls of each
+     shape) bit-equal to torch.linalg, each of R's float64 routes met;
   9. `data`: the disk data layer at full width. (a) what the machine has
      for decoding (g++, the png.h and jpeglib.h headers, PIL, cv2,
      matplotlib); the native frame loader must build where the headers
@@ -114,10 +117,11 @@ Phases:
      eagerly (`--no-graph`) for two chunks or more, until R has run 4
      times (at most 8 chunks), poses and table bit-equal to the captured
      run; R's inputs and drawn uniforms on its first 4 frames kept from
-     that eager run and R run again on the card and on the CPU: the
-     rotation and translation between the two poses, both inlier counts
-     and whether each side took R's pose are reported, only finiteness
-     gated; then its first 40 frames again, bit-equal. `sift`: `--tracker
+     that eager run and R (float64 on both devices) run again on the card
+     and on the CPU: on each frame the same inlier count and the same
+     take, poses within 1e-3 degree and 1e-3 m, both finite, the card's
+     rerun the step's own R bit for bit; then its first 40 frames again,
+     bit-equal. `sift`: `--tracker
      sift` over the first 150 frames (no kernel launch at all). `loop`:
      `--spec loop --pose-graph --chunk 16` over the 1,169-frame closed
      circuit (KLT + BA + the Sim(3) pose-graph back-end), gating the launch
@@ -245,6 +249,12 @@ HARRIS_CHUNK = 16  # frames a chunk of the harris run; a checkpoint after each
 # them (at least two).
 R_HELD_FRAMES = 4
 R_EAGER_MAX_CHUNKS = 8
+# R runs in float64 on both devices (models/pipeline.py::recover_pose), so on
+# each held frame the card and the CPU must count the same inliers, take the
+# same decision and give poses this close (in float32 the two parted by up to
+# 0.29 degree and 0.42 m on the city's second turn).
+R_CARD_CPU_DEG = 1e-3
+R_CARD_CPU_M = 1e-3
 RUN_POSE_OK_SHARE = 0.95
 
 # The distributed phase. Full width: a 1,024-observation pose, the headline's
@@ -660,7 +670,7 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     graphed.RUNNERS.clear()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with _dlt_held_to_torch_linalg(DLT_HELD_FRAMES) as dlt:
+    with _dlt_held_to_torch_linalg(DLT_HELD_FRAMES) as dlt, _bootstrap_inputs_kept() as boot:
         run = bench_torch.bench_synthetic_full(dev, city_root)
     t_all = time.perf_counter() - t0
     counts = dict(kernels.launch_counts)
@@ -714,6 +724,11 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
           f"warm-up's first {routes['frames']} frames ({routes['shape']}, finite systems "
           f"{routes['finite']}): bit-equal {routes['equal']} (max |diff| {routes['max_abs']}; "
           f"{routes['library']})")
+    # The bootstrap's f32 two-view solve, again on the card and the CPU from
+    # its kept inputs and uniforms: reported, not gated.
+    boot_held = _bootstrap_card_vs_cpu(boot, run.seq.K)
+    print(f"[headline] the bootstrap's two-view solve (f32) again on the card and the CPU "
+          f"from its inputs and draws: {json.dumps(boot_held)}")
     print(f"[headline] ATE {ate:.4f} m (reference {REFERENCE_ATE_M} m, drift "
           f"{100.0 * (ate - REFERENCE_ATE_M) / REFERENCE_ATE_M:+.1f}%), "
           f"RPE {res['rpe_trans_m']:.5f} m / {res['rpe_rot_deg']:.5f} deg")
@@ -724,7 +739,8 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
                           seconds=run.rollouts.seconds,
                           warm_seconds=run.rollouts.warm_seconds,
                           warm_equals_timed=same, fields_equal=equal, graphs=graphs,
-                          launches=counts, traced=traced, linalg_routes=routes)))
+                          launches=counts, traced=traced, linalg_routes=routes,
+                          bootstrap_card_vs_cpu=boot_held)))
     records["corner_response_nms"]["launches"] = counts["corner_response_nms"]
     records["extract_patches"]["launches"] = counts["extract_patches"]
     HANDOFF["ba_window"] = (run.rollouts.state.window, torch.as_tensor(run.seq.K, device=dev))
@@ -829,9 +845,9 @@ def _dlt_held_to_torch_linalg(frames: int):
 @contextlib.contextmanager
 def _routes_held_to_torch_linalg(per_shape: int):
     """While open, the first `per_shape` calls of each of ops/cusolver.py's
-    routines and each shape made outside a capture are also run through
-    torch.linalg (eigh, svd) on the same input and compared bit for bit.
-    Yields {"routine shape": record}."""
+    routines, each dtype and each shape made outside a capture are also run
+    through torch.linalg (eigh, svd) on the same input and compared bit for
+    bit. Yields {"routine dtype shape": record}."""
     import torch
 
     from vo_tpu_torch.ops import cusolver
@@ -843,7 +859,7 @@ def _routes_held_to_torch_linalg(per_shape: int):
     def held(name):
         def call(A):
             out = real[name](A)
-            r = routes.setdefault(f"{name} {list(A.shape)}",
+            r = routes.setdefault(f"{name} {str(A.dtype)[6:]} {list(A.shape)}",
                                   dict(calls=0, equal=True, max_abs=0.0))
             if r["calls"] < per_shape and not _capturing(A):
                 want = plain[name](A)
@@ -917,8 +933,10 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
 
     # The six lanes: bootstrapped alone, stacked, rolled in lockstep.
     kernels.reset_launch_counts()
+    r_before = _recoveries()
     boot, outs, dt = runner.run_lockstep(seqs, cfg, adaptive=synthetic.ADAPTIVE_LANES)
     counts = dict(kernels.launch_counts)
+    recoveries = _recoveries() - r_before
     poses = outs.pose.cpu().numpy()  # (N, B, 4, 4)
     steps = poses.shape[0]
     pose_ok = outs.pose_ok.sum(dim=0).tolist()
@@ -926,7 +944,8 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
     print(f"[multiseq] {steps} lockstep steps of {b} lanes in {dt:.2f} s = "
           f"{1e3 * dt / steps:.1f} ms a step, {b * steps / dt:.2f} frames/s aggregate, "
           f"{steps / dt:.2f} frames/s a lane")
-    print(f"[multiseq] launches (bootstraps + rollout): {json.dumps(counts)}")
+    print(f"[multiseq] launches (bootstraps + rollout): {json.dumps(counts)}; R ran on "
+          f"{recoveries} frames of the lanes by the device's count")
     want = {
         "corner_response_nms": b, "extract_patches": levels * b,
         "corner_response_nms_batched": steps,
@@ -970,7 +989,8 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
           f"{b * steps / dt:.2f} captured; lanes bit-equal to the eager rollout: {equal}")
     print(json.dumps(dict(phase="multiseq", lanes=names, steps=steps,
                           agg_fps_graphs=b * steps / dt, agg_fps_eager=b * steps / edt,
-                          lanes_equal_eager=equal, launches=counts)))
+                          lanes_equal_eager=equal, launches=counts,
+                          recoveries=recoveries)))
     if not all(equal):
         fails.append(f"captured lanes differ from the eager rollout: {equal}")
     del seqs, outs, eager
@@ -980,11 +1000,13 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
     dseq = synthetic.render_sequence(synthetic.distorted_spec(n_frames), dev)
     dcfg = dataclasses.replace(cfg, dist=synthetic.DISTORTED_DIST)
     kernels.reset_launch_counts()
+    r_before = _recoveries()
     dboot, douts, ddt = runner.run_single(dseq, dcfg, seed=2030)
     dcounts = dict(kernels.launch_counts)
     dsteps = douts.pose.shape[0]
     print(f"[multiseq] distorted lane: {dsteps} steps in {ddt:.2f} s = "
-          f"{dsteps / ddt:.2f} frames/s; launches {json.dumps(dcounts)}")
+          f"{dsteps / ddt:.2f} frames/s; launches {json.dumps(dcounts)}; R ran on "
+          f"{_recoveries() - r_before} frames by the device's count")
     dwant = {
         "corner_response_nms": dsteps + 1, "extract_patches": levels * (dsteps + 1),
         "corner_response_nms_batched": 0, "extract_patches_batched": 0,
@@ -1010,7 +1032,9 @@ def _recovery_in_the_graph(dev, cfg, fails: list) -> None:
     seeds and one fed seeded noise from frame 3, which loses its pose on
     every frame, so the captured rollout takes R inside its IF node on
     every frame. Captured against eager, every StepOutput field bit for
-    bit, and the device's count of R's frames against the eager step's."""
+    bit, and the device's count of R's frames against the eager step's;
+    the eager run's eighs and SVDs (R's in float64) against torch.linalg,
+    bit for bit."""
     import torch
 
     from vo_tpu_torch.data import synthetic
@@ -1073,6 +1097,14 @@ def _recovery_in_the_graph(dev, cfg, fails: list) -> None:
     if not all(equal.values()):
         fails.append(f"R in the graph: captured differs from eager in "
                      f"{[k for k, v in equal.items() if not v]}")
+    # R's eighs and SVDs run in float64 (the DLT's in float32): each route
+    # of each dtype met, and every one bit-equal to torch.linalg.
+    unequal = [key for key, r in routes.items() if not r["equal"]]
+    met = {" ".join(key.split()[:2]) for key in routes}
+    want_met = {"syev_batched float64", "gesvdj_batched float64", "syev_batched float32"}
+    if unequal or not want_met <= met:
+        fails.append(f"R in the graph: cuSOLVER routes not bit-equal to torch.linalg "
+                     f"{unequal}; routes met {sorted(met)}, want {sorted(want_met)}")
     if (st.recoveries, st.keyframes) != (eager_r, eager_c) or st.recoveries < steps:
         fails.append(f"R in the graph: the device counted R {st.recoveries} and C "
                      f"{st.keyframes} times, eager {eager_r} and {eager_c}; want R on all "
@@ -1124,9 +1156,11 @@ def _kitti_sized_probe(dev, records: dict, fails: list) -> None:
                                focal=KITTI_FOCAL)
     seq = synthetic.render_sequence(spec, dev, BENCH_PROBE_FRAMES)
     kernels.reset_launch_counts()
+    r_before = _recoveries()
     fps, runs = bench_torch.bench_kitti_probe(list(seq.frames), seq.K, dev,
                                               bench_torch.KITTI_STEPS)
     counts = dict(kernels.launch_counts)
+    recoveries = _recoveries() - r_before
     steps = runs.timed.pose.shape[0]
     finite = int(torch.isfinite(runs.timed.pose).all(dim=(1, 2)).sum())
     frozen = int(runs.timed.frozen.sum()) + int(runs.warm.frozen.sum())
@@ -1137,7 +1171,8 @@ def _kitti_sized_probe(dev, records: dict, fails: list) -> None:
                 executor=runs.executor, warm_fps=steps / runs.warm_seconds,
                 capture_s=runs.capture_seconds,
                 seconds=runs.seconds, pose_ok=int(runs.timed.pose_ok.sum()), finite=finite,
-                frozen=frozen, warm_equals_timed=same, launches=counts)
+                frozen=frozen, warm_equals_timed=same, launches=counts,
+                recoveries=recoveries)
     print(json.dumps(line))
     levels = VOConfig().klt.pyramid_levels
     want = {"corner_response_nms": 1 + 2 * steps, "extract_patches": levels * (1 + 2 * steps),
@@ -1624,6 +1659,14 @@ def _run_gates(tag: str, done, fails: list, share: float = RUN_POSE_OK_SHARE) ->
     return dict(steps=steps, pose_ok=n_ok, finite=finite, frozen=frozen)
 
 
+def _recoveries() -> int:
+    """The frames on which R ran in every cached runner so far, as the
+    device counted them (a device read)."""
+    from vo_tpu_torch.models import graphed
+
+    return (graphed.summary() or {}).get("recoveries", 0)
+
+
 def _free() -> None:
     """Hand the device memory of the runs just dropped back to the card,
     the captured runners' graphs and static buffers included."""
@@ -1709,8 +1752,7 @@ def phase_harris(dev, n_frames: int, records: dict) -> None:
                 seen.update(upto=done.frame_ids[-1], table=list(done.state.table))
             line["eager_equal_on_R_chunks"], line["R_card_vs_cpu"] = _harris_r_held(
                 base, before_r, seen, done, fails)
-    if not all(r["finite"] for r in line["R_card_vs_cpu"]):
-        fails.append(f"R's pose non-finite on the card or the CPU: {line['R_card_vs_cpu']}")
+    fails += _r_card_vs_cpu_fails(line["R_card_vs_cpu"])
 
     # The first frames again: a seeded run reproduces bit for bit.
     n_rep = min(REPEAT_FRAMES, n_frames)
@@ -1813,19 +1855,116 @@ def _r_card_vs_cpu(kept: list) -> list:
                 [Drawn(u.to(dev)) for u in rec["uniforms"]]))
         card, cpu = (pipeline.Recovered(*(f[0].cpu().double().numpy() for f in side))
                      for side in sides)
-        Ra, Rb = card.pose[:3, :3], cpu.pose[:3, :3]
-        # 2 asin(|Ra - Rb|_F / (2 sqrt 2)) is the angle of Ra^T Rb, exact near 0.
-        chord = np.linalg.norm(Ra - Rb) / (2.0 * np.sqrt(2.0))
-        angle = float(np.degrees(2.0 * np.arcsin(min(chord, 1.0))))
-        trans = float(np.linalg.norm(card.pose[:3, 3] - cpu.pose[:3, 3]))
         out.append(dict(
-            angle_deg=angle if np.isfinite(angle) else None,
-            trans_m=trans if np.isfinite(trans) else None,
+            **_poses_apart(card.pose, cpu.pose),
             speed_m=float(rec["args"][4][0]),
             inliers_card=int(card.num_inliers), inliers_cpu=int(cpu.num_inliers),
             took_card=bool(card.took), took_cpu=bool(cpu.took),
             finite=bool(np.isfinite(card.pose_fb).all() and np.isfinite(cpu.pose_fb).all()),
             card_equals_step=all(torch.equal(a, b) for a, b in zip(sides[0], rec["got"]))))
+    return out
+
+
+def _poses_apart(Pa, Pb) -> dict:
+    """The rotation angle (degrees) and the translation distance between two
+    (4, 4) poses (numpy f64); None where not finite."""
+    # 2 asin(|Ra - Rb|_F / (2 sqrt 2)) is the angle of Ra^T Rb, exact near 0.
+    chord = np.linalg.norm(Pa[:3, :3] - Pb[:3, :3]) / (2.0 * np.sqrt(2.0))
+    angle = float(np.degrees(2.0 * np.arcsin(min(chord, 1.0))))
+    trans = float(np.linalg.norm(Pa[:3, 3] - Pb[:3, 3]))
+    return dict(angle_deg=angle if np.isfinite(angle) else None,
+                trans_m=trans if np.isfinite(trans) else None)
+
+
+def _r_card_vs_cpu_fails(held: list) -> list:
+    """harris (c)'s gate over `_r_card_vs_cpu`'s records: on every held
+    frame the card and the CPU count the same inliers and take the same
+    decision, their poses lie within R_CARD_CPU_DEG and R_CARD_CPU_M, both
+    are finite, and the card's rerun is the step's own R bit for bit."""
+    fails = []
+    for rec in held:
+        where = f"R on frame {rec.get('frame')}"
+        if not rec["finite"]:
+            fails.append(f"{where}: a non-finite pose on the card or the CPU")
+        if rec["inliers_card"] != rec["inliers_cpu"] or rec["took_card"] != rec["took_cpu"]:
+            fails.append(f"{where}: inliers {rec['inliers_card']} on the card, "
+                         f"{rec['inliers_cpu']} on the CPU; took {rec['took_card']} / "
+                         f"{rec['took_cpu']}")
+        if not (rec["angle_deg"] is not None and rec["angle_deg"] <= R_CARD_CPU_DEG
+                and rec["trans_m"] is not None and rec["trans_m"] <= R_CARD_CPU_M):
+            fails.append(f"{where}: card and CPU poses {rec['angle_deg']} degree and "
+                         f"{rec['trans_m']} m apart, want <= {R_CARD_CPU_DEG} and "
+                         f"{R_CARD_CPU_M}")
+        if not rec["card_equals_step"]:
+            fails.append(f"{where}: R run again on the card differs from the step's")
+    return fails
+
+
+@contextlib.contextmanager
+def _bootstrap_inputs_kept():
+    """While open, the first bootstrap RANSAC (pipeline.fundamental_ransac
+    called with a torch.Generator) draws its uniforms here, as its own
+    `sample_indices` would (one `draw_uniforms` of the same shape from the
+    same generator: the same draw and the same indices), and keeps copies
+    of its inputs, the uniforms and its F. Yields the records (one)."""
+    from vo_tpu_torch.models import pipeline
+    from vo_tpu_torch.ops.ransac import Drawn, draw_uniforms, drawn_hypotheses
+
+    real = pipeline.fundamental_ransac
+    kept = []
+
+    def keeping(key, pts1, pts2, valid=None, **kw):
+        import torch
+
+        if kept or not isinstance(key, torch.Generator):
+            return real(key, pts1, pts2, valid=valid, **kw)
+        u = draw_uniforms(key, drawn_hypotheses(kw["num_hypotheses"]), pts1.shape[-2])
+        res = real(Drawn(u), pts1, pts2, valid=valid, **kw)
+        kept.append(dict(args=[t.clone() for t in (pts1, pts2, valid)], kw=kw,
+                         uniforms=u.clone(), model=res.model.clone()))
+        return res
+
+    pipeline.fundamental_ransac = keeping
+    try:
+        yield kept
+    finally:
+        pipeline.fundamental_ransac = real
+
+
+def _bootstrap_card_vs_cpu(kept: list, K) -> list:
+    """The bootstrap's two-view solve (f32, as in pipeline.bootstrap: the
+    8-point RANSAC, E, the cheirality vote) run again over each record of
+    `_bootstrap_inputs_kept` with its uniforms, on the card and the CPU:
+    the two poses of camera 1 apart (its baseline is 1), the inlier counts,
+    the cheirality-good inliers, and whether the card's F is the run's."""
+    import torch
+
+    from vo_tpu_torch.geom.lie import pose_inverse
+    from vo_tpu_torch.ops.epipolar import (
+        essential_from_fundamental,
+        fundamental_ransac,
+        relative_pose_from_essential,
+    )
+    from vo_tpu_torch.ops.ransac import Drawn
+
+    out = []
+    for rec in kept:
+        sides = []
+        for dev in (rec["uniforms"].device, torch.device("cpu")):
+            pts1, pts2, valid = (t.to(dev) for t in rec["args"])
+            Kd = torch.as_tensor(K, dtype=torch.float32).to(dev)
+            res = fundamental_ransac(Drawn(rec["uniforms"].to(dev)), pts1, pts2,
+                                     valid=valid, **rec["kw"])
+            E = essential_from_fundamental(res.model, Kd, Kd)
+            rp = relative_pose_from_essential(E, pts1, pts2, Kd, Kd, weight=res.inliers)
+            sides.append((res, pose_inverse(rp.T_21), rp.good & res.inliers))
+        (card, pose_card, good_card), (cpu, pose_cpu, good_cpu) = sides
+        out.append(dict(
+            **_poses_apart(pose_card.cpu().double().numpy(), pose_cpu.double().numpy()),
+            inliers_card=int(card.num_inliers), inliers_cpu=int(cpu.num_inliers),
+            good_card=int(good_card.sum()), good_cpu=int(good_cpu.sum()),
+            masks_equal=bool(torch.equal(card.inliers.cpu(), cpu.inliers)),
+            card_equals_run=bool(torch.equal(card.model, rec["model"]))))
     return out
 
 

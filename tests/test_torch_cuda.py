@@ -310,6 +310,109 @@ def test_cusolver_svd_is_torch_linalg_svd(cuda_device, shape):
         assert torch.equal(got, want)
 
 
+def _two_view(seed, n=512, outliers=0.1):
+    """Tracks of n points seen from two cameras that mostly rotate (2
+    degrees about y, 1 cm forward), 0.3 px of noise and a share of
+    outliers: the nearly degenerate 8-point systems of the recovery at a
+    turn. (prev_xy, xy, K) in float32 numpy."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]], np.float32)
+    X = rng.uniform([-20, -10, 5], [20, 10, 60], (n, 3))
+    a = np.radians(2.0)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    t = np.array([0.0, 0.0, -0.01])
+
+    def project(P):
+        uv = P @ K.T
+        return uv[:, :2] / uv[:, 2:]
+
+    prev = project(X) + rng.normal(0, 0.3, (n, 2))
+    xy = project(X @ R.T + t) + rng.normal(0, 0.3, (n, 2))
+    bad = rng.random(n) < outliers
+    xy[bad] += rng.uniform(-30, 30, (int(bad.sum()), 2))
+    return prev.astype(np.float32), xy.astype(np.float32), K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["8-point 1x256", "8-point 3x256", "refit 1", "refit 3",
+                                   "dlt 1x4x1024"])
+def test_cusolver_eigh_in_f64_is_torch_linalg_eigh(cuda_device, shape):
+    """The recovery's eighs run in float64 (models/pipeline.py
+    ::recover_pose): cusolverDnXsyevBatched with CUDA_R_64F gives
+    torch.linalg.eigh's bits at R's shapes, its 8-point and refit systems
+    (one lane and three) and the DLT of its cheirality vote (4 candidates
+    of 1,024 slots)."""
+    from vo_tpu_torch.ops import cusolver
+
+    if shape.startswith("dlt"):
+        A = _dlt_systems(cuda_device, 4, 1024, 5).to(torch.float64)[None]
+    else:
+        dims = {"8-point 1x256": (1, 256), "8-point 3x256": (3, 256), "refit 1": (1,),
+                "refit 3": (3,)}[shape]
+        M = torch.as_tensor(RNG.normal(size=dims + (20, 9)), dtype=torch.float64,
+                            device=cuda_device)
+        A = M.transpose(-1, -2) @ M
+    vals, vecs = cusolver.syev_batched(A)
+    want_vals, want_vecs = torch.linalg.eigh(A)
+    assert vals.dtype == vecs.dtype == torch.float64
+    assert torch.equal(vals, want_vals) and torch.equal(vecs, want_vecs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 256, 3, 3), (3, 256, 3, 3), (1, 3, 3), (3, 3, 3)])
+def test_cusolver_svd_in_f64_is_torch_linalg_svd(cuda_device, shape):
+    """cusolverDnDgesvdjBatched (float64's tolerance) gives
+    torch.linalg.svd's bits at R's shapes: the rank-2 projections of its
+    hypotheses and of its refit, E's projection and decomposition."""
+    from vo_tpu_torch.ops import cusolver
+
+    A = torch.as_tensor(RNG.normal(size=shape), dtype=torch.float64, device=cuda_device)
+    for got, want in zip(cusolver.gesvdj_batched(A), torch.linalg.svd(A)):
+        assert got.dtype == torch.float64 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.complex64,
+                                   torch.int32])
+def test_cusolver_refuses_other_dtypes(cuda_device, dtype):
+    """float32 and float64 only; nothing falls back to torch.linalg."""
+    from vo_tpu_torch.ops import cusolver
+
+    A = torch.eye(3, device=cuda_device).to(dtype)[None]
+    for routine in (cusolver.syev_batched, cusolver.gesvdj_batched):
+        with pytest.raises(TypeError, match="float32 or float64"):
+            routine(A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_the_recovery_on_the_card_is_the_cpus(cuda_device, seed):
+    """R (float64 on both devices) on nearly degenerate tracks with the
+    same uniforms: the same inlier count and decision, and poses one or two
+    float32 steps apart at most (both round an f64 pose that agrees to
+    about 1e-12)."""
+    from vo_tpu_torch.models import pipeline
+    from vo_tpu_torch.ops.ransac import Drawn, draw_uniforms
+    from vo_tpu_torch.utils.config import VOConfig
+
+    prev, xy, K = _two_view(seed)
+    n = prev.shape[0]
+    cfg = VOConfig(capacity=n)
+    u = draw_uniforms(torch.Generator().manual_seed(seed), *pipeline.recovery_shape(cfg))
+    sides = []
+    for dev in (cuda_device, torch.device("cpu")):
+        T = lambda x: torch.as_tensor(x, device=dev)[None]  # noqa: E731
+        sides.append(pipeline.recover_pose(
+            T(prev), T(xy), T(np.ones(n, bool)), T(np.eye(4, dtype=np.float32)),
+            T(np.float32(1.0)), T(False), T(np.eye(4, dtype=np.float32)), T(K), cfg,
+            [Drawn(u.to(dev))]))
+    card, cpu = sides
+    assert card.pose.dtype == cpu.pose.dtype == torch.float32
+    assert int(card.num_inliers) == int(cpu.num_inliers) > 30
+    assert bool(card.took) and bool(cpu.took)
+    assert float((card.pose.cpu() - cpu.pose).abs().max()) <= 3e-7
+
+
 @pytest.mark.cuda
 def test_the_frame_graph_holds_two_conditional_nodes(cuda_device):
     """One graph a frame: its IF nodes for R and C, the kernels of

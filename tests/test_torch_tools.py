@@ -212,3 +212,58 @@ def test_chip_smoke_reruns_the_recovery_on_its_kept_inputs():
         assert rec["inliers_card"] == rec["inliers_cpu"] > 0, rec
         assert rec["took_card"] and rec["took_cpu"] and rec["finite"], rec
         assert rec["card_equals_step"], rec
+
+
+def test_chip_smoke_gates_the_recovery_card_against_cpu():
+    """harris (c) is a gate: R on the card and on the CPU (float64 on both)
+    must count the same inliers, take the same decision, lie within 1e-3
+    degree and 1e-3 m, be finite, and the card's rerun must be the step's
+    own R. A record as float32 R gave on the city's second turn fails it;
+    phase_harris applies it to every held frame."""
+    import inspect
+
+    import chip_smoke
+
+    same = dict(angle_deg=2e-6, trans_m=3e-7, speed_m=3.9526, inliers_card=262,
+                inliers_cpu=262, took_card=True, took_cpu=True, finite=True,
+                card_equals_step=True, frame=395)
+    assert chip_smoke._r_card_vs_cpu_fails([same, dict(same, frame=396)]) == []
+    parted = dict(same, angle_deg=0.2905, trans_m=0.4165, inliers_cpu=266)
+    assert len(chip_smoke._r_card_vs_cpu_fails([same, parted])) == 2
+    for change in (dict(inliers_cpu=261), dict(took_cpu=False),
+                   dict(angle_deg=2 * chip_smoke.R_CARD_CPU_DEG),
+                   dict(trans_m=2 * chip_smoke.R_CARD_CPU_M), dict(angle_deg=None),
+                   dict(finite=False), dict(card_equals_step=False)):
+        assert len(chip_smoke._r_card_vs_cpu_fails([dict(same, **change)])) == 1, change
+    assert chip_smoke.R_CARD_CPU_DEG == 1e-3 and chip_smoke.R_CARD_CPU_M == 1e-3
+    assert ("fails += _r_card_vs_cpu_fails(line[\"R_card_vs_cpu\"])"
+            in inspect.getsource(chip_smoke.phase_harris))
+
+
+def test_chip_smoke_reruns_the_bootstrap_on_its_kept_inputs():
+    """The headline's bootstrap record, with both sides on the CPU: the
+    bootstrap's RANSAC draws its uniforms through the hook and gives the
+    bits it gives without it (state, outputs and generator); the kept
+    inputs run again give no difference between the sides and the run's
+    own F. The bootstrap's RANSAC is put back after."""
+    import chip_smoke
+    from vo_tpu_torch.models import pipeline
+
+    spec = dataclasses.replace(tsyn.DEFAULT_SPEC, width=160, height=120, focal=104.0)
+    seq = tsyn.render_sequence(spec, CPU, 3)
+    cfg = VOConfig(capacity=256)
+    plain_gen, held_gen = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    plain = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg, plain_gen)
+    real = pipeline.fundamental_ransac
+    with chip_smoke._bootstrap_inputs_kept() as kept:
+        held = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg, held_gen)
+    assert pipeline.fundamental_ransac is real and len(kept) == 1
+    assert torch.equal(plain_gen.get_state(), held_gen.get_state())
+    for x, y in zip(plain[1], held[1]):
+        assert torch.equal(x, y)
+    for x, y in zip(plain[0].table, held[0].table):
+        assert torch.equal(x, y)
+    [rec] = chip_smoke._bootstrap_card_vs_cpu(kept, seq.K)
+    assert rec["angle_deg"] == 0.0 and rec["trans_m"] == 0.0, rec
+    assert rec["inliers_card"] == rec["inliers_cpu"] > 0 and rec["masks_equal"], rec
+    assert rec["good_card"] == rec["good_cpu"] > 0 and rec["card_equals_run"], rec

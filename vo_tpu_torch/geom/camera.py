@@ -26,14 +26,17 @@ class Camera(NamedTuple):
     dist: torch.Tensor
 
     @classmethod
-    def create(cls, K, pose=None, dist=None, device=None) -> "Camera":
-        K = torch.as_tensor(K, dtype=torch.float32, device=device)
+    def create(cls, K, pose=None, dist=None, device=None,
+               dtype: torch.dtype = torch.float32) -> "Camera":
+        """Every field in `dtype`: f32, as the JAX package's, unless asked
+        (the recovery asks for f64, models/pipeline.py::recover_pose)."""
+        K = torch.as_tensor(K, dtype=dtype, device=device)
         dev = K.device
-        pose = (torch.eye(4, dtype=torch.float32, device=dev).expand(K.shape[:-2] + (4, 4))
+        pose = (torch.eye(4, dtype=dtype, device=dev).expand(K.shape[:-2] + (4, 4))
                 if pose is None
-                else torch.as_tensor(pose, dtype=torch.float32, device=dev))
-        dist = (torch.zeros(5, dtype=torch.float32, device=dev) if dist is None
-                else torch.as_tensor(dist, dtype=torch.float32, device=dev))
+                else torch.as_tensor(pose, dtype=dtype, device=dev))
+        dist = (torch.zeros(5, dtype=dtype, device=dev) if dist is None
+                else torch.as_tensor(dist, dtype=dtype, device=dev))
         return cls(K=K, pose=pose, dist=dist)
 
     @property

@@ -34,12 +34,12 @@ def inverse(M: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv_ex(M).inverse
 
 
-def device_vector(values, device) -> torch.Tensor:
-    """An f32 vector of Python numbers, written on `device` by fills.
-    `torch.tensor(values, device=...)` copies from pageable host memory and
-    waits for the copy, which a CUDA graph cannot hold; the values are the
-    same f32 roundings."""
-    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device)
+def device_vector(values, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A vector of Python numbers in `dtype` (f32 unless asked), written on
+    `device` by fills. `torch.tensor(values, device=...)` copies from
+    pageable host memory and waits for the copy, which a CUDA graph cannot
+    hold; the values are the same roundings."""
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device)
                         for v in values])
 
 

@@ -333,9 +333,9 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _camera(K: torch.Tensor, cfg: VOConfig) -> Camera:
-    """The configured lens around K (its coefficients written on K's device
-    without a host copy)."""
-    return Camera.create(K, dist=device_vector(cfg.dist, K.device))
+    """The configured lens around K, in K's dtype (its coefficients written
+    on K's device without a host copy)."""
+    return Camera.create(K, dist=device_vector(cfg.dist, K.device, K.dtype), dtype=K.dtype)
 
 
 def _undistort(xy: torch.Tensor, K: torch.Tensor, cfg: VOConfig) -> torch.Tensor:
@@ -792,7 +792,18 @@ def recover_pose(prev_xy: torch.Tensor, xy_u: torch.Tensor, tracked: torch.Tenso
     """`step_recover` over everything it reads: the last frame's positions
     (`state.table.xy`), this frame's ideal positions, the tracked slots, the
     last pose and speed (`state.pose`, `state.last_speed`), PnP's verdict
-    and the constant-velocity fallback (`a.pose_ok`, `a.pose_fb`)."""
+    and the constant-velocity fallback (`a.pose_ok`, `a.pose_fb`).
+
+    A named deviation from the JAX package, whose R is f32: R runs in f64
+    from its inputs (the undistortion included) to its pose, which is
+    rounded back to f32. At a turn the 8-point system is nearly degenerate,
+    and two f32 eigensolvers (cuSOLVER on the card, LAPACK on the CPU) put
+    different points on the inlier side; in f64 both agree to the system's
+    condition number times 1e-16. The draws are unchanged: the sample
+    indices come from the same f32 uniforms (`gumbel_top_k`)."""
+    f64 = torch.float64
+    prev_xy, xy_u, K, pose, last_speed = (
+        t.to(f64) for t in (prev_xy, xy_u, K, pose, last_speed))
     prev_xy_u = _undistort(prev_xy, K, cfg)
     res = fundamental_ransac(
         samplers, prev_xy_u, xy_u, valid=tracked,
@@ -803,7 +814,7 @@ def recover_pose(prev_xy: torch.Tensor, xy_u: torch.Tensor, tracked: torch.Tenso
     rp = relative_pose_from_essential(E, prev_xy_u, xy_u, K, K, weight=res.inliers)
     T21 = rp.T_21.clone()
     T21[..., :3, 3] = rp.T_21[..., :3, 3] * last_speed[..., None]
-    pose_vis = pose @ pose_inverse(T21)
+    pose_vis = (pose @ pose_inverse(T21)).to(pose_fb.dtype)
     ok = (res.num_inliers >= cfg.recovery.min_inliers) & _all_finite(pose_vis)
     took = ok & ~pose_ok
     return Recovered(where_lane(took, pose_vis, pose_fb), pose_vis, res.num_inliers, took)

@@ -11,18 +11,22 @@ PyTorch's parameters and column-major layout, and does not read `info`:
   which torch.linalg.eigh (PyTorch 2.11, cuSOLVER 11.7) runs for these
   sizes: the same bits, one matrix or a batch, and nothing on the host
   (its host workspace is empty);
-- svd: `cusolverDnSgesvdjBatched` (tolerance = f32's epsilon, 15 sweeps,
-  sorted), which torch.linalg.svd runs for matrices of at most 32 rows.
+- svd: `cusolverDn{S,D}gesvdjBatched` (tolerance = the dtype's epsilon, 15
+  sweeps, sorted), which torch.linalg.svd runs for matrices of at most 32
+  rows.
 
-chip_smoke.py holds both to torch.linalg bit for bit at the step's shapes.
+Both take float32 (the step) and float64 (the recovery, models/pipeline.py
+::recover_pose); any other dtype raises. chip_smoke.py and
+tests/test_torch_cuda.py hold both to torch.linalg bit for bit at the
+step's shapes, in both dtypes.
 Non-convergence is the one error left, and it is left unread: the result is
 the routine's last iterate (a non-finite input never gets here,
 `ops/linalg.py` replaces it by the identity first).
 
 State per device, made at first use: one handle (its stream set to the
 current stream at every call, so a call inside a capture runs on the
-capturing stream), the routines' parameters, and per (routine, shape) the
-workspace size from `*_bufferSize`, which must not run under capture (a
+capturing stream), the routines' parameters, and per (routine, dtype,
+shape) the workspace size from `*_bufferSize`, which must not run under capture (a
 captured rollout makes its first call of each shape in its warm-up). The
 workspace and `info` are allocated at every call from torch's allocator,
 as PyTorch does: inside a capture from the graph's pool, so they live as
@@ -42,7 +46,10 @@ _L = ctypes.c_int64
 _Z = ctypes.c_size_t
 _VECTOR = 1  # CUSOLVER_EIG_MODE_VECTOR
 _LOWER = 0  # CUBLAS_FILL_MODE_LOWER (torch.linalg.eigh's default UPLO="L")
-_R_32F = 0  # cudaDataType CUDA_R_32F: the step is f32 on the card
+# cudaDataType of each dtype: the step is f32, the recovery f64.
+_DATA_TYPE = {torch.float32: 0, torch.float64: 1}  # CUDA_R_32F, CUDA_R_64F
+# gesvdjBatched by dtype: cusolverDn<S|D>gesvdjBatched.
+_GESVDJ = {torch.float32: "S", torch.float64: "D"}
 
 _SIGNATURES = {
     "cusolverDnCreate": (_P,),
@@ -60,13 +67,14 @@ _SIGNATURES = {
     #  device work, device bytes, host work, host bytes, info, batch)
     "cusolverDnXsyevBatched": (_P, _P, _I, _I, _L, _I, _P, _L, _I, _P, _I, _P, _Z, _P, _Z,
                                _P, _L),
-    # (handle, jobz, m, n, A, lda, S, U, ldu, V, ldv, lwork*, params, batch)
-    "cusolverDnSgesvdjBatched_bufferSize": (_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P,
-                                            _P, _I),
-    # (handle, jobz, m, n, A, lda, S, U, ldu, V, ldv, work, lwork, info, params, batch)
-    "cusolverDnSgesvdjBatched": (_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P,
-                                 _P, _I),
 }
+# (handle, jobz, m, n, A, lda, S, U, ldu, V, ldv, lwork*, params, batch)
+_GESVDJ_SIZE = (_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I)
+# (handle, jobz, m, n, A, lda, S, U, ldu, V, ldv, work, lwork, info, params, batch)
+_GESVDJ_CALL = (_P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I)
+_SIGNATURES.update({f"cusolverDn{t}gesvdjBatched{suffix}": sig
+                    for t in _GESVDJ.values()
+                    for suffix, sig in (("_bufferSize", _GESVDJ_SIZE), ("", _GESVDJ_CALL))})
 
 
 def library_path() -> str:
@@ -102,29 +110,31 @@ def _call(name: str, *args) -> None:
 
 
 class _Device:
-    """One device's handle, parameters and workspace sizes by shape."""
+    """One device's handle, parameters (gesvdj's by dtype) and workspace
+    sizes by shape."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.handle, self.params, self.gesvdj = _P(), _P(), _P()
+        self.handle, self.params = _P(), _P()
+        self.gesvdj = {dtype: _P() for dtype in _GESVDJ}
         with torch.cuda.device(device):
             _call("cusolverDnCreate", ctypes.byref(self.handle))
             _call("cusolverDnCreateParams", ctypes.byref(self.params))
-            _call("cusolverDnCreateGesvdjInfo", ctypes.byref(self.gesvdj))
-            _call("cusolverDnXgesvdjSetTolerance", self.gesvdj,
-                  float(torch.finfo(torch.float32).eps))
-            _call("cusolverDnXgesvdjSetMaxSweeps", self.gesvdj, 15)
-            _call("cusolverDnXgesvdjSetSortEig", self.gesvdj, 1)
-        self.sizes: dict = {}  # (routine, n, batch) -> workspace bytes
+            for dtype, info in self.gesvdj.items():
+                _call("cusolverDnCreateGesvdjInfo", ctypes.byref(info))
+                _call("cusolverDnXgesvdjSetTolerance", info, float(torch.finfo(dtype).eps))
+                _call("cusolverDnXgesvdjSetMaxSweeps", info, 15)
+                _call("cusolverDnXgesvdjSetSortEig", info, 1)
+        self.sizes: dict = {}  # (routine, dtype, n, batch) -> workspace bytes
 
     def stream(self) -> None:
         _call("cusolverDnSetStream", self.handle,
               _P(torch.cuda.current_stream(self.device).cuda_stream))
 
     def workspace(self, key: tuple, query) -> tuple[torch.Tensor, int, torch.Tensor]:
-        """(workspace, its size, info) for a call of `key` = (routine, n,
-        batch); the size from `query()` (a cuSOLVER size query) on first
-        use."""
+        """(workspace, its size, info) for a call of `key` = (routine,
+        dtype, n, batch); the size from `query()` (a cuSOLVER size query) on
+        first use."""
         size = self.sizes.get(key)
         if size is None:
             if torch.cuda.is_current_stream_capturing():
@@ -132,15 +142,16 @@ class _Device:
                                    "capture: call it once outside capture first")
             size = self.sizes[key] = query()
         work = torch.empty(max(size, 1), dtype=torch.uint8, device=self.device)
-        return work, size, torch.empty(key[2], dtype=torch.int32, device=self.device)
+        return work, size, torch.empty(key[3], dtype=torch.int32, device=self.device)
 
 
 _DEVICES: dict = {}
 
 
 def _device(A: torch.Tensor) -> _Device:
-    if not A.is_cuda or A.dtype != torch.float32:
-        raise TypeError(f"cuSOLVER here takes CUDA float32, got {A.dtype} on {A.device}")
+    if not A.is_cuda or A.dtype not in _DATA_TYPE:
+        raise TypeError(f"cuSOLVER here takes CUDA float32 or float64, got {A.dtype} on "
+                        f"{A.device}")
     if A.ndim < 2 or A.shape[-1] != A.shape[-2] or not 0 < A.shape[-1] <= 32:
         raise ValueError(f"square matrices of at most 32 rows, got {tuple(A.shape)}")
     key = A.device.index if A.device.index is not None else torch.cuda.current_device()
@@ -160,15 +171,16 @@ def _column_major(A: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 
 def syev_batched(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """torch.linalg.eigh(A) for symmetric float32 (..., n, n), n <= 32,
-    through `cusolverDnXsyevBatched`: (eigenvalues ascending (..., n),
-    eigenvectors as columns (..., n, n)). No host read."""
+    """torch.linalg.eigh(A) for symmetric float32 or float64 (..., n, n),
+    n <= 32, through `cusolverDnXsyevBatched`: (eigenvalues ascending
+    (..., n), eigenvectors as columns (..., n, n)). No host read."""
     state = _device(A)
     n = A.shape[-1]
     vecs, batch = _column_major(A)
     vals = torch.empty((batch, n), dtype=A.dtype, device=A.device)
-    args = (state.handle, state.params, _VECTOR, _LOWER, n, _R_32F, _P(vecs.data_ptr()), n,
-            _R_32F, _P(vals.data_ptr()), _R_32F)
+    t = _DATA_TYPE[A.dtype]
+    args = (state.handle, state.params, _VECTOR, _LOWER, n, t, _P(vecs.data_ptr()), n,
+            t, _P(vals.data_ptr()), t)
 
     def query() -> int:
         dev_bytes, host_bytes = _Z(0), _Z(0)
@@ -179,16 +191,19 @@ def syev_batched(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                                "of host workspace: it would work on the host")
         return dev_bytes.value
 
-    work, size, info = state.workspace(("syev", n, batch), query)
+    work, size, info = state.workspace(("syev", A.dtype, n, batch), query)
     _call("cusolverDnXsyevBatched", *args, _P(work.data_ptr()), size, None, 0,
           _P(info.data_ptr()), batch)
     return vals.reshape(A.shape[:-1]), vecs.transpose(-1, -2).reshape(A.shape)
 
 
 def gesvdj_batched(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """torch.linalg.svd(A) for square float32 (..., n, n), n <= 32, through
-    `cusolverDnSgesvdjBatched`: (U, S descending, Vh). No host read."""
+    """torch.linalg.svd(A) for square float32 or float64 (..., n, n),
+    n <= 32, through `cusolverDn{S,D}gesvdjBatched`: (U, S descending, Vh).
+    No host read."""
     state = _device(A)
+    routine = f"cusolverDn{_GESVDJ[A.dtype]}gesvdjBatched"
+    params = state.gesvdj[A.dtype]
     n = A.shape[-1]
     a, batch = _column_major(A)
     s = torch.empty((batch, n), dtype=A.dtype, device=A.device)
@@ -197,14 +212,15 @@ def gesvdj_batched(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.T
     args = (state.handle, _VECTOR, n, n, _P(a.data_ptr()), n, _P(s.data_ptr()),
             _P(u.data_ptr()), n, _P(v.data_ptr()), n)
 
+    item = A.element_size()
+
     def query() -> int:
         lwork = _I(0)
-        _call("cusolverDnSgesvdjBatched_bufferSize", *args, ctypes.byref(lwork),
-              state.gesvdj, batch)
-        return 4 * lwork.value  # lwork counts floats
+        _call(routine + "_bufferSize", *args, ctypes.byref(lwork), params, batch)
+        return item * lwork.value  # lwork counts elements
 
-    work, size, info = state.workspace(("gesvdj", n, batch), query)
-    _call("cusolverDnSgesvdjBatched", *args, _P(work.data_ptr()), size // 4,
-          _P(info.data_ptr()), state.gesvdj, batch)
+    work, size, info = state.workspace(("gesvdj", A.dtype, n, batch), query)
+    _call(routine, *args, _P(work.data_ptr()), size // item, _P(info.data_ptr()), params,
+          batch)
     # u and v hold U and V column-major: u is U^T row-major, v is V^T = Vh.
     return u.transpose(-1, -2).reshape(A.shape), s.reshape(A.shape[:-1]), v.reshape(A.shape)

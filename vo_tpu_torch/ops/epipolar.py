@@ -130,7 +130,7 @@ def decompose_essential(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     Vh = Vh * torch.stack([one, one, detV], dim=-1)[..., :, None]
     # Written on the device (no host copy, which a CUDA graph cannot hold).
     W = device_vector([0.0, -1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0],
-                      E.device).reshape(3, 3).to(E.dtype)
+                      E.device, E.dtype).reshape(3, 3)
     R1 = U @ W @ Vh
     R2 = U @ W.T @ Vh
     t = U[..., :, 2]

@@ -113,9 +113,10 @@ def eigh_finite(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """eigh (ascending) that returns NaN for a batch element holding a
     non-finite entry instead of raising, as LAPACK-through-XLA does for the
     reference. On the card: the cuSOLVER routine torch.linalg.eigh runs
-    (XsyevBatched: the same bits) with its error flag left on the device
-    (ops/cusolver.py), so a CUDA graph can hold it; on the CPU:
-    torch.linalg.eigh (LAPACK), the plain version."""
+    (XsyevBatched: the same bits, f32 or f64) with its error flag left on
+    the device (ops/cusolver.py), so a CUDA graph can hold it; any other
+    dtype raises there. On the CPU: torch.linalg.eigh (LAPACK), the plain
+    version."""
     ok, A = _finite_rows(A)
     vals, vecs = cusolver.syev_batched(A) if A.is_cuda else torch.linalg.eigh(A)
     nan = float("nan")
@@ -126,8 +127,8 @@ def eigh_finite(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def svd_finite(A: torch.Tensor, full_matrices: bool = True):
     """svd (square matrices, so `full_matrices` changes nothing) with the
     same non-finite guard as `eigh_finite`. On the card: cuSOLVER's
-    gesvdjBatched with torch.linalg.svd's parameters and no host read; on
-    the CPU: torch.linalg.svd."""
+    gesvdjBatched (S or D, f32 or f64) with torch.linalg.svd's parameters
+    and no host read; on the CPU: torch.linalg.svd."""
     ok, A = _finite_rows(A)
     U, S, Vh = (cusolver.gesvdj_batched(A) if A.is_cuda
                 else torch.linalg.svd(A, full_matrices=full_matrices))

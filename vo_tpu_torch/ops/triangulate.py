@@ -25,7 +25,10 @@ def _dlt_rows(P: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 
 
 def _guard(w: torch.Tensor, tiny: float) -> torch.Tensor:
-    return torch.where(w.abs() < tiny, torch.where(w < 0, -tiny, tiny), w)
+    """w with |w| < tiny replaced by +-tiny in w's dtype (a where of two
+    Python numbers would round them to f32)."""
+    return torch.where(w.abs() < tiny, torch.where(w < 0, torch.full_like(w, -tiny),
+                                                   torch.full_like(w, tiny)), w)
 
 
 def triangulate_dlt(

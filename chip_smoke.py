@@ -39,9 +39,12 @@ Phases:
      (ops/cusolver.py) bit-equal to torch.linalg.eigh on the headline's own
      DLT systems: each of the eager warm-up's first 16 steps runs both on
      its systems (the bootstrap state, the run's own draws); the
-     bootstrap's float32 two-view solve (8-point RANSAC, E, cheirality) run
-     again from its kept inputs and uniforms on the card and the CPU,
-     reported and not gated; prints both frames/s, the capture's seconds,
+     bootstrap's float64 two-view solve (pipeline.two_view_f64: 8-point
+     RANSAC, E, cheirality; then `bootstrap_map`) run again from its kept
+     inputs and uniforms on the card and the CPU and gated: the same inlier
+     masks and counts, the same landmark count, poses of camera 1 within
+     1e-3 degree and 1e-3 of the baseline, both finite, the card's rerun
+     the run's own solve bit for bit; prints both frames/s, the capture's seconds,
      the graphs and their nodes, the syncs a step that torch's sync
      detector reported and the frames on which R and C ran, as the device
      counted them;
@@ -77,8 +80,9 @@ Phases:
      its own; gates the batched launch counts, finiteness, per-lane pose_ok,
      every lane bit-equal to the same lanes rolled eagerly and, at the full
      600 frames a lane (the default; `--multiseq-frames` cuts it), the ATE;
-     then R inside the graph: three lanes at capacity 512, the third fed
-     seeded noise from frame 3 (lost on every frame), 20 steps captured
+     the seven bootstraps (six lanes, the distorted lens) held card against
+     CPU as the headline's; then R inside the graph: three lanes at
+     capacity 512, the third fed seeded noise from frame 3 (lost on every frame), 20 steps captured
      against eager bit for bit, the device's count of R's frames equal to
      the eager step's, no sync reported; the eager run's eighs and SVDs
      (R's in float64, the DLT's in float32, the first 4 calls of each
@@ -111,7 +115,8 @@ Phases:
      `--tracker harris` over the 600-frame city with a checkpoint after
      every chunk (the corner kernel's (harris, 7, 5) instance twice at
      bootstrap and once a step, no gather launch; ATE <= 40 m, pose_ok >=
-     60%); the frames on which the recovery R ran, as the device counted
+     60%); its bootstrap held card against CPU as the headline's; the
+     frames on which the recovery R ran, as the device counted
      them, equal to the frames that lost their pose, and at least one at
      full length; the checkpoint written before R's first chunk resumed
      eagerly (`--no-graph`) for two chunks or more, until R has run 4
@@ -252,7 +257,10 @@ R_EAGER_MAX_CHUNKS = 8
 # R runs in float64 on both devices (models/pipeline.py::recover_pose), so on
 # each held frame the card and the CPU must count the same inliers, take the
 # same decision and give poses this close (in float32 the two parted by up to
-# 0.29 degree and 0.42 m on the city's second turn).
+# 0.29 degree and 0.42 m on the city's second turn). The bootstrap's solve is
+# float64 too (pipeline.two_view_f64) and held to the same limits, its
+# translation in units of its baseline (in float32: 0.0016 degree, 0.00038
+# and one landmark apart on the headline's).
 R_CARD_CPU_DEG = 1e-3
 R_CARD_CPU_M = 1e-3
 RUN_POSE_OK_SHARE = 0.95
@@ -724,11 +732,10 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
           f"warm-up's first {routes['frames']} frames ({routes['shape']}, finite systems "
           f"{routes['finite']}): bit-equal {routes['equal']} (max |diff| {routes['max_abs']}; "
           f"{routes['library']})")
-    # The bootstrap's f32 two-view solve, again on the card and the CPU from
-    # its kept inputs and uniforms: reported, not gated.
-    boot_held = _bootstrap_card_vs_cpu(boot, run.seq.K)
-    print(f"[headline] the bootstrap's two-view solve (f32) again on the card and the CPU "
-          f"from its inputs and draws: {json.dumps(boot_held)}")
+    # The bootstrap's two-view solve, again on the card and the CPU from its
+    # kept inputs and uniforms: gated below with the rest.
+    fails = []
+    boot_held = _bootstraps_held("headline", boot, ["headline"], fails)
     print(f"[headline] ATE {ate:.4f} m (reference {REFERENCE_ATE_M} m, drift "
           f"{100.0 * (ate - REFERENCE_ATE_M) / REFERENCE_ATE_M:+.1f}%), "
           f"RPE {res['rpe_trans_m']:.5f} m / {res['rpe_rot_deg']:.5f} deg")
@@ -759,7 +766,6 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
         if d > 2:
             raise AssertionError(f"renderer disagrees with the reference at frame {i}: {d}")
 
-    fails = []
     # Both rollouts launch: 1 corner kernel at bootstrap and one a step, one
     # gather pair a pyramid level at bootstrap and a step.
     want_k1 = 1 + 2 * steps
@@ -934,7 +940,8 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
     # The six lanes: bootstrapped alone, stacked, rolled in lockstep.
     kernels.reset_launch_counts()
     r_before = _recoveries()
-    boot, outs, dt = runner.run_lockstep(seqs, cfg, adaptive=synthetic.ADAPTIVE_LANES)
+    with _bootstrap_inputs_kept(b) as kept:
+        boot, outs, dt = runner.run_lockstep(seqs, cfg, adaptive=synthetic.ADAPTIVE_LANES)
     counts = dict(kernels.launch_counts)
     recoveries = _recoveries() - r_before
     poses = outs.pose.cpu().numpy()  # (N, B, 4, 4)
@@ -1001,7 +1008,8 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
     dcfg = dataclasses.replace(cfg, dist=synthetic.DISTORTED_DIST)
     kernels.reset_launch_counts()
     r_before = _recoveries()
-    dboot, douts, ddt = runner.run_single(dseq, dcfg, seed=2030)
+    with _bootstrap_inputs_kept() as dkept:
+        dboot, douts, ddt = runner.run_single(dseq, dcfg, seed=2030)
     dcounts = dict(kernels.launch_counts)
     dsteps = douts.pose.shape[0]
     print(f"[multiseq] distorted lane: {dsteps} steps in {ddt:.2f} s = "
@@ -1020,7 +1028,11 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
         counts["corner_response_nms"] + dcounts["corner_response_nms"])
     records["extract_patches"]["launches_multiseq"] = (
         counts["extract_patches"] + dcounts["extract_patches"])
-    del dseq, douts
+    # The seven bootstraps (the six lanes', the distorted lens') again on the
+    # card and the CPU.
+    held = _bootstraps_held("multiseq", kept + dkept, names + ["distorted"], fails)
+    print(json.dumps(dict(phase="multiseq", part="bootstrap_card_vs_cpu", held=held)))
+    del dseq, douts, kept, dkept
     _free()
     _recovery_in_the_graph(dev, cfg, fails)
     if fails:
@@ -1712,11 +1724,13 @@ def phase_harris(dev, n_frames: int, records: dict) -> None:
                     seen.update(upto=frame, table=[f.clone() for f in state.table])
 
         kernels.reset_launch_counts()
-        done = _drive(base + ["--max-frames", str(n_frames), "--checkpoint", ckpt,
-                              "--checkpoint-every", str(HARRIS_CHUNK)], observer)
+        with _bootstrap_inputs_kept() as kept:
+            done = _drive(base + ["--max-frames", str(n_frames), "--checkpoint", ckpt,
+                                  "--checkpoint-every", str(HARRIS_CHUNK)], observer)
         counts = dict(kernels.launch_counts)
         line = dict(phase="harris", **_run_gates("harris", done, fails, HARRIS_POSE_OK_SHARE),
-                    **done.result, launches=counts)
+                    **done.result, launches=counts,
+                    bootstrap_card_vs_cpu=_bootstraps_held("harris", kept, ["harris"], fails))
         steps = line["steps"]
         want = {"corner_response_nms": 2 + steps, "extract_patches": 0,
                 "corner_response_nms_batched": 0, "extract_patches_batched": 0}
@@ -1901,71 +1915,118 @@ def _r_card_vs_cpu_fails(held: list) -> list:
 
 
 @contextlib.contextmanager
-def _bootstrap_inputs_kept():
-    """While open, the first bootstrap RANSAC (pipeline.fundamental_ransac
-    called with a torch.Generator) draws its uniforms here, as its own
-    `sample_indices` would (one `draw_uniforms` of the same shape from the
-    same generator: the same draw and the same indices), and keeps copies
-    of its inputs, the uniforms and its F. Yields the records (one)."""
+def _bootstrap_inputs_kept(calls: int = 1):
+    """While open, the first `calls` bootstrap solves (pipeline.two_view_f64
+    called with a torch.Generator, as `bootstrap` calls it; R calls it with
+    lane samplers and is let through) draw their uniforms here, as their
+    RANSAC's own `sample_indices` would (one `draw_uniforms` of the same
+    shape from the same generator: the same draw and the same indices), and
+    keep copies of their inputs, the uniforms and the solve. Yields the
+    records, one a bootstrap."""
+    import torch
+
     from vo_tpu_torch.models import pipeline
     from vo_tpu_torch.ops.ransac import Drawn, draw_uniforms, drawn_hypotheses
 
-    real = pipeline.fundamental_ransac
+    real = pipeline.two_view_f64
     kept = []
 
-    def keeping(key, pts1, pts2, valid=None, **kw):
-        import torch
+    def keeping(xy0, xy1, valid, K, cfg, stage, samplers, ideal1=False):
+        if len(kept) >= calls or not isinstance(samplers, torch.Generator):
+            return real(xy0, xy1, valid, K, cfg, stage, samplers, ideal1)
+        u = draw_uniforms(samplers, drawn_hypotheses(stage.num_hypotheses), xy0.shape[-2])
+        two = real(xy0, xy1, valid, K, cfg, stage, Drawn(u), ideal1)
+        kept.append(dict(args=[t.clone() for t in (xy0, xy1, valid, K)], cfg=cfg,
+                         stage=stage, ideal1=ideal1, uniforms=u.clone(),
+                         got=[t.clone() for part in two for t in part]))
+        return two
 
-        if kept or not isinstance(key, torch.Generator):
-            return real(key, pts1, pts2, valid=valid, **kw)
-        u = draw_uniforms(key, drawn_hypotheses(kw["num_hypotheses"]), pts1.shape[-2])
-        res = real(Drawn(u), pts1, pts2, valid=valid, **kw)
-        kept.append(dict(args=[t.clone() for t in (pts1, pts2, valid)], kw=kw,
-                         uniforms=u.clone(), model=res.model.clone()))
-        return res
-
-    pipeline.fundamental_ransac = keeping
+    pipeline.two_view_f64 = keeping
     try:
         yield kept
     finally:
-        pipeline.fundamental_ransac = real
+        pipeline.two_view_f64 = real
 
 
-def _bootstrap_card_vs_cpu(kept: list, K) -> list:
-    """The bootstrap's two-view solve (f32, as in pipeline.bootstrap: the
-    8-point RANSAC, E, the cheirality vote) run again over each record of
-    `_bootstrap_inputs_kept` with its uniforms, on the card and the CPU:
-    the two poses of camera 1 apart (its baseline is 1), the inlier counts,
-    the cheirality-good inliers, and whether the card's F is the run's."""
+def _bootstrap_card_vs_cpu(kept: list, tags: list) -> list:
+    """The bootstrap's solve (pipeline.two_view_f64, float64, then
+    `bootstrap_map`: the f32 pose of camera 1 and the landmark gates) run
+    again over each record of `_bootstrap_inputs_kept` with its uniforms,
+    on the device it was kept on and on the CPU, named by `tags`, one a
+    record. Per record: the two poses of camera 1 apart (its baseline is
+    1), the inlier counts and masks, the landmarks (cheirality-good inliers
+    in the depth range) and their masks, whether each pose is finite, and
+    whether the rerun on the kept device gave the run's own solve (F,
+    inliers, T_21, points) bit for bit."""
     import torch
 
-    from vo_tpu_torch.geom.lie import pose_inverse
-    from vo_tpu_torch.ops.epipolar import (
-        essential_from_fundamental,
-        fundamental_ransac,
-        relative_pose_from_essential,
-    )
+    from vo_tpu_torch.models import pipeline
     from vo_tpu_torch.ops.ransac import Drawn
 
     out = []
-    for rec in kept:
+    for i, rec in enumerate(kept):
         sides = []
         for dev in (rec["uniforms"].device, torch.device("cpu")):
-            pts1, pts2, valid = (t.to(dev) for t in rec["args"])
-            Kd = torch.as_tensor(K, dtype=torch.float32).to(dev)
-            res = fundamental_ransac(Drawn(rec["uniforms"].to(dev)), pts1, pts2,
-                                     valid=valid, **rec["kw"])
-            E = essential_from_fundamental(res.model, Kd, Kd)
-            rp = relative_pose_from_essential(E, pts1, pts2, Kd, Kd, weight=res.inliers)
-            sides.append((res, pose_inverse(rp.T_21), rp.good & res.inliers))
-        (card, pose_card, good_card), (cpu, pose_cpu, good_cpu) = sides
+            two = pipeline.two_view_f64(*(t.to(dev) for t in rec["args"]), rec["cfg"],
+                                        rec["stage"], Drawn(rec["uniforms"].to(dev)),
+                                        rec["ideal1"])
+            sides.append((two, pipeline.bootstrap_map(two, rec["cfg"])))
+        (card, (pose_card, _, good_card)), (cpu, (pose_cpu, _, good_cpu)) = sides
+        pose_card, good_card = pose_card.cpu(), good_card.cpu()
+        run = [t.cpu() for t in rec["got"]]
         out.append(dict(
-            **_poses_apart(pose_card.cpu().double().numpy(), pose_cpu.double().numpy()),
-            inliers_card=int(card.num_inliers), inliers_cpu=int(cpu.num_inliers),
+            bootstrap=tags[i] if i < len(tags) else f"#{i}",
+            **_poses_apart(pose_card.double().numpy(), pose_cpu.double().numpy()),
+            pose_bits_equal=bool(torch.equal(pose_card, pose_cpu)),
+            inliers_card=int(card.ransac.num_inliers), inliers_cpu=int(cpu.ransac.num_inliers),
+            masks_equal=bool(torch.equal(card.ransac.inliers.cpu(), cpu.ransac.inliers)),
             good_card=int(good_card.sum()), good_cpu=int(good_cpu.sum()),
-            masks_equal=bool(torch.equal(card.inliers.cpu(), cpu.inliers)),
-            card_equals_run=bool(torch.equal(card.model, rec["model"]))))
+            good_masks_equal=bool(torch.equal(good_card, good_cpu)),
+            finite=bool(torch.isfinite(pose_card).all() and torch.isfinite(pose_cpu).all()),
+            card_equals_run=all(torch.equal(a.cpu(), b) for a, b in
+                                zip((t for part in card for t in part), run))))
     return out
+
+
+def _bootstraps_held(phase: str, kept: list, tags: list, fails: list) -> list:
+    """The bootstraps `kept` in a phase, one for each of `tags`, run again
+    on the card and the CPU (`_bootstrap_card_vs_cpu`), printed and gated
+    (`_bootstrap_card_vs_cpu_fails`, into `fails`). Returns the records."""
+    held = _bootstrap_card_vs_cpu(kept, tags)
+    print(f"[{phase}] the bootstrap's two-view solve (float64) again on the card and the "
+          f"CPU from its inputs and draws: {json.dumps(held)}")
+    if len(kept) != len(tags):
+        fails.append(f"kept {len(kept)} bootstraps, want {len(tags)} ({tags})")
+    fails += _bootstrap_card_vs_cpu_fails(held)
+    return held
+
+
+def _bootstrap_card_vs_cpu_fails(held: list) -> list:
+    """The gate over `_bootstrap_card_vs_cpu`'s records (the headline's,
+    multiseq's seven, harris's): on every held bootstrap the card and the
+    CPU count the same inliers with the same masks and the same landmarks,
+    their poses of camera 1 lie within R_CARD_CPU_DEG and R_CARD_CPU_M of
+    the unit baseline, both are finite, and the card's rerun is the run's
+    own solve bit for bit."""
+    fails = []
+    for rec in held:
+        where = f"the {rec['bootstrap']} bootstrap"
+        if not rec["finite"]:
+            fails.append(f"{where}: a non-finite pose on the card or the CPU")
+        if rec["inliers_card"] != rec["inliers_cpu"] or not rec["masks_equal"]:
+            fails.append(f"{where}: inliers {rec['inliers_card']} on the card, "
+                         f"{rec['inliers_cpu']} on the CPU; masks equal {rec['masks_equal']}")
+        if rec["good_card"] != rec["good_cpu"]:
+            fails.append(f"{where}: {rec['good_card']} landmarks on the card, "
+                         f"{rec['good_cpu']} on the CPU")
+        if not (rec["angle_deg"] is not None and rec["angle_deg"] <= R_CARD_CPU_DEG
+                and rec["trans_m"] is not None and rec["trans_m"] <= R_CARD_CPU_M):
+            fails.append(f"{where}: card and CPU poses {rec['angle_deg']} degree and "
+                         f"{rec['trans_m']} of the baseline apart, want <= "
+                         f"{R_CARD_CPU_DEG} and {R_CARD_CPU_M}")
+        if not rec["card_equals_run"]:
+            fails.append(f"{where}: the solve run again on the card differs from the run's")
+    return fails
 
 
 def phase_sift(dev, n_frames: int, records: dict) -> None:

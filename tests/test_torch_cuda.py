@@ -335,20 +335,22 @@ def _two_view(seed, n=512, outliers=0.1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["8-point 1x256", "8-point 3x256", "refit 1", "refit 3",
-                                   "dlt 1x4x1024"])
+                                   "dlt 1x4x1024", "8-point 512", "single 9x9", "dlt 4x1024"])
 def test_cusolver_eigh_in_f64_is_torch_linalg_eigh(cuda_device, shape):
-    """The recovery's eighs run in float64 (models/pipeline.py
-    ::recover_pose): cusolverDnXsyevBatched with CUDA_R_64F gives
+    """The two-view solve's eighs run in float64 (models/pipeline.py
+    ::two_view_f64): cusolverDnXsyevBatched with CUDA_R_64F gives
     torch.linalg.eigh's bits at R's shapes, its 8-point and refit systems
     (one lane and three) and the DLT of its cheirality vote (4 candidates
-    of 1,024 slots)."""
+    of 1,024 slots), and at the bootstrap's: its 512 8-point systems, its
+    single refit and its DLT without a lane axis."""
     from vo_tpu_torch.ops import cusolver
 
     if shape.startswith("dlt"):
-        A = _dlt_systems(cuda_device, 4, 1024, 5).to(torch.float64)[None]
+        A = _dlt_systems(cuda_device, 4, 1024, 5).to(torch.float64)
+        A = A[None] if shape == "dlt 1x4x1024" else A
     else:
         dims = {"8-point 1x256": (1, 256), "8-point 3x256": (3, 256), "refit 1": (1,),
-                "refit 3": (3,)}[shape]
+                "refit 3": (3,), "8-point 512": (512,), "single 9x9": ()}[shape]
         M = torch.as_tensor(RNG.normal(size=dims + (20, 9)), dtype=torch.float64,
                             device=cuda_device)
         A = M.transpose(-1, -2) @ M
@@ -359,11 +361,13 @@ def test_cusolver_eigh_in_f64_is_torch_linalg_eigh(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 256, 3, 3), (3, 256, 3, 3), (1, 3, 3), (3, 3, 3)])
+@pytest.mark.parametrize("shape", [(1, 256, 3, 3), (3, 256, 3, 3), (1, 3, 3), (3, 3, 3),
+                                   (512, 3, 3), (3, 3)])
 def test_cusolver_svd_in_f64_is_torch_linalg_svd(cuda_device, shape):
     """cusolverDnDgesvdjBatched (float64's tolerance) gives
-    torch.linalg.svd's bits at R's shapes: the rank-2 projections of its
-    hypotheses and of its refit, E's projection and decomposition."""
+    torch.linalg.svd's bits at R's shapes and the bootstrap's (no lane
+    axis, 512 hypotheses): the rank-2 projections of the hypotheses and of
+    the refit, E's projection and decomposition."""
     from vo_tpu_torch.ops import cusolver
 
     A = torch.as_tensor(RNG.normal(size=shape), dtype=torch.float64, device=cuda_device)
@@ -411,6 +415,40 @@ def test_the_recovery_on_the_card_is_the_cpus(cuda_device, seed):
     assert int(card.num_inliers) == int(cpu.num_inliers) > 30
     assert bool(card.took) and bool(cpu.took)
     assert float((card.pose.cpu() - cpu.pose).abs().max()) <= 3e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_the_bootstrap_on_the_card_is_the_cpus(cuda_device, seed):
+    """The bootstrap's solve (`two_view_f64` and `bootstrap_map`, float64
+    on both devices) on a nearly degenerate, mostly rotating pair with the
+    same uniforms: the same inlier and cheirality masks, the same
+    landmarks and the same float32 pose of camera 1, bit for bit. (With a
+    1 cm baseline most points lie beyond the depth range: a few are
+    landmarks.)"""
+    from vo_tpu_torch.models import pipeline
+    from vo_tpu_torch.ops.ransac import Drawn, draw_uniforms
+    from vo_tpu_torch.utils.config import VOConfig
+
+    prev, xy, K = _two_view(seed)
+    n = prev.shape[0]
+    cfg = VOConfig(capacity=n)
+    u = draw_uniforms(torch.Generator().manual_seed(seed), cfg.bootstrap.num_hypotheses, n)
+    sides = []
+    for dev in (cuda_device, torch.device("cpu")):
+        T = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        two = pipeline.two_view_f64(T(prev), T(xy), T(np.ones(n, bool)), T(K), cfg,
+                                    cfg.bootstrap, Drawn(u.to(dev)))
+        sides.append((two.ransac.inliers.cpu(), (two.rel.good & two.ransac.inliers).cpu())
+                     + tuple(t.cpu() for t in pipeline.bootstrap_map(two, cfg)))
+    (card_inl, card_front, card_pose, card_pts, card_good), \
+        (cpu_inl, cpu_front, cpu_pose, cpu_pts, cpu_good) = sides
+    assert card_pose.dtype == cpu_pose.dtype == torch.float32
+    assert int(card_inl.sum()) > 30 and torch.equal(card_inl, cpu_inl)
+    assert int(card_front.sum()) > 30 and torch.equal(card_front, cpu_front)
+    assert int(card_good.sum()) > 0 and torch.equal(card_good, cpu_good)
+    assert torch.equal(card_pose, cpu_pose)
+    assert torch.allclose(card_pts[cpu_good], cpu_pts[cpu_good], rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda

@@ -28,6 +28,7 @@ import check_kernels_cuda  # noqa: E402
 import debug_candidate_gates_torch  # noqa: E402
 import debug_sift_nan_torch  # noqa: E402
 import debug_track_drift_torch  # noqa: E402
+import loop_edges_torch  # noqa: E402
 import probe_ablate_torch  # noqa: E402
 import profile_all_torch  # noqa: E402
 import repro_headline_torch  # noqa: E402
@@ -241,29 +242,117 @@ def test_chip_smoke_gates_the_recovery_card_against_cpu():
 
 
 def test_chip_smoke_reruns_the_bootstrap_on_its_kept_inputs():
-    """The headline's bootstrap record, with both sides on the CPU: the
-    bootstrap's RANSAC draws its uniforms through the hook and gives the
-    bits it gives without it (state, outputs and generator); the kept
-    inputs run again give no difference between the sides and the run's
-    own F. The bootstrap's RANSAC is put back after."""
+    """The bootstraps' records, with both sides on the CPU: two bootstraps,
+    the second through a distorted lens, draw their uniforms through the
+    hook on the shared two-view solve (pipeline.two_view_f64) and give the
+    bits they give without it (state, outputs and generator); a third one,
+    beyond the records asked for, and the recovery's calls are let
+    through. The kept inputs run again give no difference between the
+    sides and the run's own solve, and pass the gate. The solve is put back
+    after."""
     import chip_smoke
     from vo_tpu_torch.models import pipeline
 
     spec = dataclasses.replace(tsyn.DEFAULT_SPEC, width=160, height=120, focal=104.0)
-    seq = tsyn.render_sequence(spec, CPU, 3)
+    dspec = dataclasses.replace(spec, dist=tsyn.DISTORTED_DIST)
     cfg = VOConfig(capacity=256)
-    plain_gen, held_gen = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
-    plain = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg, plain_gen)
-    real = pipeline.fundamental_ransac
-    with chip_smoke._bootstrap_inputs_kept() as kept:
-        held = pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, cfg, held_gen)
-    assert pipeline.fundamental_ransac is real and len(kept) == 1
-    assert torch.equal(plain_gen.get_state(), held_gen.get_state())
-    for x, y in zip(plain[1], held[1]):
-        assert torch.equal(x, y)
-    for x, y in zip(plain[0].table, held[0].table):
-        assert torch.equal(x, y)
-    [rec] = chip_smoke._bootstrap_card_vs_cpu(kept, seq.K)
-    assert rec["angle_deg"] == 0.0 and rec["trans_m"] == 0.0, rec
-    assert rec["inliers_card"] == rec["inliers_cpu"] > 0 and rec["masks_equal"], rec
-    assert rec["good_card"] == rec["good_cpu"] > 0 and rec["card_equals_run"], rec
+    runs = [(tsyn.render_sequence(spec, CPU, 3), cfg, 3),
+            (tsyn.render_sequence(dspec, CPU, 3),
+             dataclasses.replace(cfg, dist=tsyn.DISTORTED_DIST), 4),
+            (tsyn.render_sequence(spec, CPU, 3), cfg, 5)]
+
+    def boot(seq, c, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return pipeline.bootstrap(seq.frames[0], seq.frames[2], seq.K, c, gen), gen
+
+    plain = [boot(*run) for run in runs]
+    real = pipeline.two_view_f64
+    with chip_smoke._bootstrap_inputs_kept(2) as kept:
+        held = [boot(*run) for run in runs]
+    assert pipeline.two_view_f64 is real and len(kept) == 2
+    for ((p_state, p_out), p_gen), ((h_state, h_out), h_gen) in zip(plain, held):
+        assert torch.equal(p_gen.get_state(), h_gen.get_state())
+        for x, y in zip(p_out, h_out):
+            assert torch.equal(x, y)
+        for x, y in zip(p_state.table, h_state.table):
+            assert torch.equal(x, y)
+    assert kept[1]["cfg"].dist == tsyn.DISTORTED_DIST and not kept[1]["ideal1"]
+    records = chip_smoke._bootstrap_card_vs_cpu(kept, ["plain", "distorted"])
+    assert [rec["bootstrap"] for rec in records] == ["plain", "distorted"]
+    for rec in records:
+        assert rec["angle_deg"] == 0.0 and rec["trans_m"] == 0.0, rec
+        assert rec["inliers_card"] == rec["inliers_cpu"] > 0 and rec["masks_equal"], rec
+        assert rec["good_card"] == rec["good_cpu"] > 0 and rec["card_equals_run"], rec
+        assert rec["pose_bits_equal"] and rec["good_masks_equal"] and rec["finite"], rec
+    assert chip_smoke._bootstrap_card_vs_cpu_fails(records) == []
+
+
+def test_chip_smoke_gates_the_bootstrap_card_against_cpu():
+    """The bootstrap's card-against-CPU record is a gate, at R's limits
+    (R_CARD_CPU_DEG, R_CARD_CPU_M of the unit baseline): equal inlier
+    counts and masks, equal landmark counts, both poses finite, the card's
+    rerun the run's own solve. A record as the float32 bootstrap gave on
+    the headline's frames fails it; the headline, multiseq (six lanes and
+    the distorted lens) and harris each hold their bootstraps to it."""
+    import inspect
+
+    import chip_smoke
+
+    same = dict(bootstrap="headline", angle_deg=0.0, trans_m=0.0, pose_bits_equal=True,
+                inliers_card=240, inliers_cpu=240, masks_equal=True, good_card=238,
+                good_cpu=238, good_masks_equal=True, finite=True, card_equals_run=True)
+    assert chip_smoke._bootstrap_card_vs_cpu_fails([same, dict(same, bootstrap="city")]) == []
+    f32 = dict(same, angle_deg=0.0016, trans_m=0.00038, good_card=237)
+    assert len(chip_smoke._bootstrap_card_vs_cpu_fails([f32])) == 2
+    for change in (dict(inliers_cpu=239), dict(masks_equal=False), dict(good_cpu=237),
+                   dict(angle_deg=2 * chip_smoke.R_CARD_CPU_DEG),
+                   dict(trans_m=2 * chip_smoke.R_CARD_CPU_M), dict(angle_deg=None),
+                   dict(trans_m=None), dict(finite=False), dict(card_equals_run=False)):
+        assert len(chip_smoke._bootstrap_card_vs_cpu_fails([dict(same, **change)])) == 1, \
+            change
+    assert chip_smoke.R_CARD_CPU_DEG == 1e-3 and chip_smoke.R_CARD_CPU_M == 1e-3
+    held = {phase: inspect.getsource(fn).count("_bootstraps_held(")
+            for phase, fn in (("headline", chip_smoke.phase_headline),
+                              ("multiseq", chip_smoke.phase_multiseq),
+                              ("harris", chip_smoke.phase_harris))}
+    assert held == {"headline": 1, "multiseq": 1, "harris": 1}
+    assert "fails += _bootstrap_card_vs_cpu_fails(held)" in inspect.getsource(
+        chip_smoke._bootstraps_held)
+    fails = []
+    chip_smoke._bootstraps_held("headline", [], ["headline"], fails)
+    assert fails == ["kept 0 bootstraps, want 1 (['headline'])"]
+
+
+def test_loop_edges_scores_a_planted_edge():
+    """`loop_edges_torch.edge_errors` on a planted circuit whose map runs at
+    2 units a metre at the old keyframe and 1.6 at the new one: the true
+    edge scores 0 degree, 0 degree, length 1 and scale 1; an edge turned
+    10 degrees off in direction scores that, and one twice as long 2."""
+    def pose(x, yaw):
+        c, s = np.cos(yaw), np.sin(yaw)
+        P = np.eye(4)
+        P[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        P[0, 3] = x
+        return P
+
+    gt = {0: pose(0, 0), 16: pose(1, 0), 200: pose(3, 0.3), 216: pose(4, 0.3)}
+    units = {0: 2.0, 16: 2.0, 200: 1.6, 216: 1.6}  # map units a metre
+    est = [pose(gt[f][0, 3] * units[f], 0.3 if f >= 200 else 0.0) for f in gt]
+    frames = np.array(list(gt))
+    true = np.linalg.inv(gt[0]) @ gt[200]
+    rel = true.copy()
+    rel[:3, 3] *= 2.0  # in the old map's units
+    rel[:3, :3] *= 2.0 / 1.6  # s_old / s_new
+    c, s = np.cos(np.radians(10)), np.sin(np.radians(10))
+    turned = rel.copy()
+    turned[:3, 3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]) @ rel[:3, 3]
+    longer = rel.copy()
+    longer[:3, 3] *= 2.0
+    rels = np.stack([rel, turned, longer, rel]).reshape(4, 16)
+    out = loop_edges_torch.edge_errors(np.array([[0, 2]] * 4), rels,
+                                       np.array([True, True, True, False]), frames,
+                                       np.stack(est).reshape(4, 16), gt.__getitem__)
+    assert len(out) == 3 and [o[:2] for o in out] == [[200, 0]] * 3
+    np.testing.assert_allclose(out[0][2:], [0.0, 0.0, 1.0, 1.0], atol=1e-6)
+    np.testing.assert_allclose(out[1][2:], [0.0, 10.0, 1.0, 1.0], atol=1e-5)
+    np.testing.assert_allclose(out[2][2:], [0.0, 0.0, 2.0, 1.0], atol=1e-6)

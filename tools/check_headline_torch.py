@@ -18,8 +18,9 @@ neither read nor written here.
 Run it before every commit that touches vo_tpu_torch/ops, models, geom or
 utils/config.py. The headline ATE is bit-stable for one card and commit
 (one seeded generator, no clock in the arithmetic), so the 5% tolerance
-absorbs CPU against card numerics only (the CPU gives 1.4914 m against the
-card's 1.4494 m, 2.9% apart), not run-to-run noise. chip_smoke.py applies
+absorbs CPU against card numerics only (before the bootstrap ran in
+float64 the CPU gave 1.4914 m against the card's 1.4494 m, 2.9% apart),
+not run-to-run noise. chip_smoke.py applies
 `gate` to its own headline run.
 
 Ends in one JSON line with the card's name and power limit.

@@ -67,6 +67,7 @@ from vo_tpu_torch.models.feature_table import (
     restart_tracks,
 )
 from vo_tpu_torch.ops.epipolar import (
+    RelativePose,
     essential_from_fundamental,
     fundamental_ransac,
     relative_pose_from_essential,
@@ -78,6 +79,7 @@ from vo_tpu_torch.ops.klt import TrackResult, pyramidal_lk
 from vo_tpu_torch.ops.pnp import pnp_ransac
 from vo_tpu_torch.ops.ransac import (
     Drawn,
+    RansacResult,
     Samplers,
     draw_uniforms,
     drawn_hypotheses,
@@ -378,6 +380,64 @@ def _i32(x, device) -> torch.Tensor:
 # Bootstrap (ref main.py:204-243)
 # ---------------------------------------------------------------------------
 
+class TwoView(NamedTuple):
+    """What `two_view_f64` solves, in f64."""
+
+    ransac: RansacResult  # F (..., 3, 3), its inliers and their count
+    rel: RelativePose  # T_21 (unit baseline), points in frame 1, cheirality mask
+
+
+def two_view_f64(xy0: torch.Tensor, xy1: torch.Tensor, valid: torch.Tensor,
+                 K: torch.Tensor, cfg: VOConfig, stage, samplers: Samplers,
+                 ideal1: bool = False) -> TwoView:
+    """The relative pose of two views from their tracks, as the bootstrap
+    and the recovery R solve it: the raw positions undistorted (`xy1` is
+    already ideal with `ideal1`), the 8-point RANSAC with `stage`'s
+    threshold and budget (cfg.bootstrap or cfg.recovery), E, and the
+    cheirality vote that triangulates every slot.
+
+    The one place of the port's f64 rule, a named deviation from the JAX
+    package, whose two-view solve is f32: the tracks and K are cast to f64
+    first, and everything after is f64. Each caller rounds what it keeps
+    back to f32 and applies its own gates (`bootstrap_map`, `recover_pose`).
+    Only the draw stays f32: the sample indices come from the f32 uniforms
+    (`gumbel_top_k`), so the streams advance as before."""
+    f64 = torch.float64
+    xy0, xy1, K = (t.to(f64) for t in (xy0, xy1, K))
+    xy0 = _undistort(xy0, K, cfg)
+    if not ideal1:
+        xy1 = _undistort(xy1, K, cfg)
+    res = fundamental_ransac(
+        samplers, xy0, xy1, valid=valid,
+        inlier_threshold_px=stage.inlier_threshold_px,
+        num_hypotheses=stage.num_hypotheses,
+    )
+    E = essential_from_fundamental(res.model, K, K)
+    return TwoView(res, relative_pose_from_essential(E, xy0, xy1, K, K, weight=res.inliers))
+
+
+def bootstrap_map(two: TwoView, cfg: VOConfig) -> tuple[torch.Tensor, torch.Tensor,
+                                                        torch.Tensor]:
+    """The bootstrap's map from its two-view solve: the pose of camera 1
+    (w_T_c1, world = camera 0) and the landmarks in camera 0's frame,
+    rounded to f32, and which slots hold a landmark (inliers in front of
+    both cameras, inside the depth range, finite); the gates are taken in
+    f64 before the rounding."""
+    res, rp = two
+    pose1 = pose_inverse(rp.T_21)
+    depth1 = (rp.T_21[2, :3] @ rp.points1.T) + rp.T_21[2, 3]
+    tcfg = cfg.triangulation
+    good3d = (
+        res.inliers
+        & rp.good
+        & (rp.points1[:, 2] > tcfg.min_depth)
+        & (rp.points1[:, 2] < tcfg.max_depth)
+        & (depth1 > tcfg.min_depth)
+        & torch.isfinite(rp.points1).all(dim=1)
+    )
+    return pose1.to(torch.float32), rp.points1.to(torch.float32), good3d
+
+
 def bootstrap(
     image0: torch.Tensor,
     image1: torch.Tensor,
@@ -390,7 +450,18 @@ def bootstrap(
     The bootstrap's RANSAC draws from `rng`, which PnP goes on drawing from;
     the recovery's stream is `recovery_stream(rng)`.
     The lanes of a multi-sequence run are bootstrapped one by one and
-    stacked (parallel/multiseq.py `stack_states`)."""
+    stacked (parallel/multiseq.py `stack_states`).
+
+    A named deviation from the JAX package, whose bootstrap is f32: the
+    two-view solve runs in f64 (`two_view_f64`, shared with the recovery R)
+    and so do the pose of camera 1 and the landmark gates on it
+    (`bootstrap_map`); the pose and the landmarks are rounded back to f32
+    there, and the rest of the bootstrap (the table, the window,
+    `last_speed`, the outputs) is f32 as before. In f32 the card's cuSOLVER
+    and the CPU's LAPACK part by a few thousandths of a degree, and a
+    depth test at its threshold then flips a landmark; in f64 both give
+    the same flags. The draws are unchanged: one draw of (hypotheses,
+    capacity) uniforms from `rng`, as in f32."""
     _check_tracker(cfg)
     dev = image0.device
     kcap = cfg.capacity
@@ -409,36 +480,17 @@ def bootstrap(
         sigma1 = torch.where(tr.status, det1.sigma[midx], kps.sigma)
     tracked = kps.valid & tr.status
 
-    xy0_u = _undistort(kps.xy, K, cfg)
-    xy1_u = _undistort(tr.xy, K, cfg)
-    res = fundamental_ransac(
-        rng, xy0_u, xy1_u, valid=tracked,
-        inlier_threshold_px=cfg.bootstrap.inlier_threshold_px,
-        num_hypotheses=cfg.bootstrap.num_hypotheses,
-    )
-    E = essential_from_fundamental(res.model, K, K)
-    rp = relative_pose_from_essential(E, xy0_u, xy1_u, K, K, weight=res.inliers)
-
+    two = two_view_f64(kps.xy, tr.xy, tracked, K, cfg, cfg.bootstrap, rng)
+    res = two.ransac
+    pose1, points1, good3d = bootstrap_map(two, cfg)
     pose0 = torch.eye(4, dtype=torch.float32, device=dev)
-    pose1 = pose_inverse(rp.T_21)  # w_T_c1 (world = cam0)
-
-    depth1 = (rp.T_21[2, :3] @ rp.points1.T) + rp.T_21[2, 3]
-    tcfg = cfg.triangulation
-    good3d = (
-        res.inliers
-        & rp.good
-        & (rp.points1[:, 2] > tcfg.min_depth)
-        & (rp.points1[:, 2] < tcfg.max_depth)
-        & (depth1 > tcfg.min_depth)
-        & torch.isfinite(rp.points1).all(dim=1)
-    )
 
     state = torch.where(
         good3d, STATE_TRIANGULATED, torch.where(tracked, STATE_MATCHED, STATE_EMPTY)
     ).to(torch.int32)
     table = empty_table(kcap, cfg.desc_dim, device=dev)._replace(
         xy=tr.xy,
-        landmark=torch.where(good3d[:, None], rp.points1, 0.0),
+        landmark=torch.where(good3d[:, None], points1, 0.0),
         state=state,
         track_xy=kps.xy,
         track_pose=pose0.reshape(1, 16).repeat(kcap, 1),
@@ -795,23 +847,17 @@ def recover_pose(prev_xy: torch.Tensor, xy_u: torch.Tensor, tracked: torch.Tenso
     and the constant-velocity fallback (`a.pose_ok`, `a.pose_fb`).
 
     A named deviation from the JAX package, whose R is f32: R runs in f64
-    from its inputs (the undistortion included) to its pose, which is
-    rounded back to f32. At a turn the 8-point system is nearly degenerate,
-    and two f32 eigensolvers (cuSOLVER on the card, LAPACK on the CPU) put
-    different points on the inlier side; in f64 both agree to the system's
-    condition number times 1e-16. The draws are unchanged: the sample
-    indices come from the same f32 uniforms (`gumbel_top_k`)."""
+    from its inputs (the undistortion included, `two_view_f64`) to its
+    pose, which is rounded back to f32. At a turn the 8-point system is
+    nearly degenerate, and two f32 eigensolvers (cuSOLVER on the card,
+    LAPACK on the CPU) put different points on the inlier side; in f64 both
+    agree to the system's condition number times 1e-16. The draws are
+    unchanged: the sample indices come from the same f32 uniforms
+    (`gumbel_top_k`)."""
     f64 = torch.float64
-    prev_xy, xy_u, K, pose, last_speed = (
-        t.to(f64) for t in (prev_xy, xy_u, K, pose, last_speed))
-    prev_xy_u = _undistort(prev_xy, K, cfg)
-    res = fundamental_ransac(
-        samplers, prev_xy_u, xy_u, valid=tracked,
-        inlier_threshold_px=cfg.recovery.inlier_threshold_px,
-        num_hypotheses=cfg.recovery.num_hypotheses,
-    )
-    E = essential_from_fundamental(res.model, K, K)
-    rp = relative_pose_from_essential(E, prev_xy_u, xy_u, K, K, weight=res.inliers)
+    res, rp = two_view_f64(prev_xy, xy_u, tracked, K, cfg, cfg.recovery, samplers,
+                           ideal1=True)
+    pose, last_speed = pose.to(f64), last_speed.to(f64)
     T21 = rp.T_21.clone()
     T21[..., :3, 3] = rp.T_21[..., :3, 3] * last_speed[..., None]
     pose_vis = (pose @ pose_inverse(T21)).to(pose_fb.dtype)

@@ -15,8 +15,9 @@ PyTorch's parameters and column-major layout, and does not read `info`:
   sweeps, sorted), which torch.linalg.svd runs for matrices of at most 32
   rows.
 
-Both take float32 (the step) and float64 (the recovery, models/pipeline.py
-::recover_pose); any other dtype raises. chip_smoke.py and
+Both take float32 (the step) and float64 (the two-view solve of the
+recovery and the bootstrap, models/pipeline.py::two_view_f64); any other
+dtype raises. chip_smoke.py and
 tests/test_torch_cuda.py hold both to torch.linalg bit for bit at the
 step's shapes, in both dtypes.
 Non-convergence is the one error left, and it is left unread: the result is
@@ -46,7 +47,7 @@ _L = ctypes.c_int64
 _Z = ctypes.c_size_t
 _VECTOR = 1  # CUSOLVER_EIG_MODE_VECTOR
 _LOWER = 0  # CUBLAS_FILL_MODE_LOWER (torch.linalg.eigh's default UPLO="L")
-# cudaDataType of each dtype: the step is f32, the recovery f64.
+# cudaDataType of each dtype: the step is f32, the two-view solve f64.
 _DATA_TYPE = {torch.float32: 0, torch.float64: 1}  # CUDA_R_32F, CUDA_R_64F
 # gesvdjBatched by dtype: cusolverDn<S|D>gesvdjBatched.
 _GESVDJ = {torch.float32: "S", torch.float64: "D"}

@@ -284,11 +284,13 @@ def test_a_captured_runner_needs_generators_on_the_card(city):
                                        (True, True)])
 def test_the_step_schedule(lost, push):
     """`pipeline.run_step`, the one schedule that `vo_step` and the runner
-    both walk: A, R under the device predicate "a lane lost its pose", B1,
-    eigh, B2, C under "a lane pushes", D; each segment gets the results of
-    the ones before it. The predicates come in as tensors and the schedule
-    itself reads nothing: what a branch does with its predicate is the
-    caller's (`eager_branch` reads it; the runner makes an IF node of it)."""
+    both walk: A (its front end, then PnP), R under the device predicate "a
+    lane lost its pose", B1, eigh, B2, C under "a lane pushes", D; each
+    segment gets the results of the ones before it, and a mark falls on
+    every boundary, R's and C's inside their branches. The predicates come
+    in as tensors and the schedule itself reads nothing: what a branch does
+    with its predicate is the caller's (`eager_branch` reads it; the runner
+    makes an IF node of it)."""
     calls, branches = [], []
 
     def seg(name, result):
@@ -296,6 +298,9 @@ def test_the_step_schedule(lost, push):
             calls.append((name, args))
             return result
         return run
+
+    def mark(boundary):
+        calls.append(("mark", boundary))
 
     def branch(name, pred, run, skipped):
         # The runner's way: the predicate is a device tensor over all lanes,
@@ -307,26 +312,38 @@ def test_the_step_schedule(lost, push):
     tracked = SimpleNamespace(pose_ok=torch.tensor([True, not lost]))
     mapped = SimpleNamespace(push=torch.tensor([False, push]))
     segments = tpipe.Segments(
-        track=seg("A", tracked), recover=seg("R", "a'"), locate=seg("B1", "g"),
-        eigh=seg("eigh", "v"), map=seg("B2", mapped), keyframe=seg("C", "b'"),
-        finish=seg("D", "out"))
-    assert tpipe.run_step(segments, branch, CFG) == "out"
+        track=seg("A", "f"), localize=seg("PnP", tracked), recover=seg("R", "a'"),
+        locate=seg("B1", "g"), eigh=seg("eigh", "v"), map=seg("B2", mapped),
+        keyframe=seg("C", "b'"), finish=seg("D", "out"))
+    assert tpipe.run_step(segments, branch, CFG, mark) == "out"
     a = "a'" if lost else tracked
     b = "b'" if push else mapped
-    want = [("A", ())] + [("R", (tracked,))] * lost + [
-        ("B1", (a,)), ("eigh", ("g",)), ("B2", (a, "g", "v"))] + [
-        ("C", (a, mapped))] * push + [("D", (a, b))]
+
+    def marked(name, call):
+        return [("mark", f"{name}.start"), call, ("mark", f"{name}.end")]
+
+    want = [("mark", "start"), ("A", ()), ("mark", "track"), ("PnP", ("f",)),
+            ("mark", "localize")] + marked("R", ("R", (tracked,))) * lost + [
+        ("B1", (a,)), ("mark", "locate"), ("eigh", ("g",)), ("mark", "eigh"),
+        ("B2", (a, "g", "v")), ("mark", "map")] + marked("C", ("C", (a, mapped))) * push + [
+        ("D", (a, b)), ("mark", "end")]
     assert calls == want and branches == [("R", lost), ("C", push)]
-    # The eager step's branch gives the same calls.
+    assert [c[1] for c in want if c[0] == "mark"] == [
+        x for x in tpipe.BOUNDARIES if not (x[0] == "R" and not lost)
+        and not (x[0] == "C" and not push)]
+    # The eager step's branch gives the same calls; its default mark is none.
     calls.clear()
-    assert tpipe.run_step(segments, tpipe.eager_branch, CFG) == "out" and calls == want
+    assert tpipe.run_step(segments, tpipe.eager_branch, CFG, mark) == "out" and calls == want
+    calls.clear()
+    tpipe.run_step(segments, tpipe.eager_branch, CFG)
+    assert calls == [c for c in want if c[0] != "mark"]
     # Without recovery and BA there is no branch, and R and C never run.
     calls.clear()
     branches.clear()
     off = VOConfig(capacity=CAPACITY, ba=BAConfig(enabled=False),
                    recovery=dataclasses.replace(CFG.recovery, enabled=False))
     tpipe.run_step(segments, branch, off)
-    assert [c[0] for c in calls] == ["A", "B1", "eigh", "B2", "D"] and branches == []
+    assert [c[0] for c in calls] == ["A", "PnP", "B1", "eigh", "B2", "D"] and branches == []
 
 
 def test_a_lane_lost_on_some_frames_of_the_chunk(city, monkeypatch):

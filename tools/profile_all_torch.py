@@ -24,16 +24,17 @@ seed 2023) and times, on frame 3 and that state:
   * then 40-frame rollouts (frames 3-5 ping-ponged, the JAX tool's order)
     with BA off and on: a warm-up, then a timed run with the same draws.
 
-Each row: `host_ms`, the best of `--reps` calls, each ending in a
+Each part's row: `host_ms`, the best of `--reps` calls, each ending in a
 synchronize (the JAX tool's sync mode); on the card also `device_ms`, the
 summed time of the CUDA kernels of one call traced by torch.profiler
-(device activity only; a part under 5 ms is traced over 10 calls), the
-`kernels` it launches, and `device_idle_share` = 1 - device_ms / host_ms
-(host_ms taken without the profiler). Rollout rows give host time per frame
-and frames/s of the timed 40-frame rollout, and device time per frame over
-its first 8 steps traced again from the same state and draws (tracing all
-40 costs minutes of trace processing). Under `--device cpu` the device
-columns are null: a CPU run says nothing about the card.
+(device activity only; a part under 5 ms is traced over 10 calls), and the
+`kernels` it launches. Rollout rows give host time per frame and frames/s
+of the timed 40-frame rollout and, on the card, its device ms a frame
+(`device_ms`, the captured step's span from its start mark to its end mark
+on the card's clock) and `device_idle_pct`, the card's time between steps
+over the steps' wall time, both from the runner's own spans over the timed
+rollout, untraced (vo_tpu_torch/models/spans.py). Under `--device cpu` the
+device columns are null: a CPU run says nothing about the card.
 
 Prints the card's name and power limit, a table, and one JSON line.
 """
@@ -57,7 +58,6 @@ import common_torch  # noqa: E402  (the tools' shared plumbing)
 CAPACITY = 1024
 DESC_D = 19 * 19  # the matcher's descriptor length (patch radius 9)
 ROLLOUT_STEPS = 40
-PROFILED_STEPS = 8  # the rollout steps traced for device time
 FRAMES = 6
 
 
@@ -100,12 +100,11 @@ def device_busy(fn, dev, calls: int = 1) -> tuple[float, float]:
 
 def _row(name: str, fn, dev, reps: int) -> dict:
     ms = host_ms(fn, dev, reps)
-    row = {"name": name, "host_ms": ms, "device_ms": None, "kernels": None,
-           "device_idle_share": None}
+    row = {"name": name, "host_ms": ms, "device_ms": None, "kernels": None}
     if dev.type == "cuda":
         # A part that takes under 5 ms is traced over 10 calls.
         d_ms, n = device_busy(fn, dev, 10 if ms < 5.0 else 1)
-        row.update(device_ms=d_ms, kernels=n, device_idle_share=1.0 - d_ms / ms)
+        row.update(device_ms=d_ms, kernels=n)
     return row
 
 
@@ -114,9 +113,10 @@ def profile(frames, K, dev, reps: int = 3) -> list[dict]:
     (3, 3)."""
     import torch
 
+    from vo_tpu_torch.models import graphed, spans
     from vo_tpu_torch.models.ba import ba_refine
     from vo_tpu_torch.models.feature_table import STATE_TRIANGULATED
-    from vo_tpu_torch.models.pipeline import bootstrap, rewinder, vo_rollout, vo_step
+    from vo_tpu_torch.models.pipeline import bootstrap, vo_step
     from vo_tpu_torch.ops import kernels
     from vo_tpu_torch.ops.descriptors import match_descriptors
     from vo_tpu_torch.ops.harris import select_from_masked
@@ -192,15 +192,12 @@ def profile(frames, K, dev, reps: int = 3) -> list[dict]:
                "executor": runs.executor,
                "host_ms": 1e3 * runs.seconds / ROLLOUT_STEPS,
                "fps": ROLLOUT_STEPS / runs.seconds, "device_ms": None, "kernels": None,
-               "device_idle_share": None}
-        if dev.type == "cuda":
-            # The device time of the first PROFILED_STEPS steps (half of
-            # them BA frames) from the same state and draws.
-            rewind = rewinder(state)
-            d_ms, n = device_busy(lambda: vo_rollout(state, stack[:PROFILED_STEPS], K, c), dev)
-            rewind()
-            row.update(device_ms=d_ms / PROFILED_STEPS, kernels=n / PROFILED_STEPS,
-                       device_idle_share=1.0 - (d_ms / PROFILED_STEPS) / row["host_ms"])
+               "device_idle_pct": None}
+        if runs.executor == "graphs":
+            # The runner's spans hold the timed rollout alone: the capture's
+            # and warm-up's marks are not kept, the warm-up ran eagerly.
+            s = spans.statistics([graphed.runner_for(state, stack, K, c).span_readout()])
+            row.update(device_ms=s["step_ms"]["mean"], device_idle_pct=s["device_idle_pct"])
         rows.append(row)
     return rows
 
@@ -221,11 +218,11 @@ def print_table(rows: list[dict]) -> None:
     def f(v, fmt):
         return "-" if v is None else format(v, fmt)
 
-    print(f"{'part':36s} {'host ms':>10s} {'device ms':>10s} {'idle':>6s} {'kernels':>8s}")
+    print(f"{'part':36s} {'host ms':>10s} {'device ms':>10s} {'idle %':>7s} {'kernels':>8s}")
     for r in rows:
         fps = f"  ({r['fps']:.2f} frames/s)" if "fps" in r else ""
         print(f"{r['name']:36s} {r['host_ms']:10.3f} {f(r['device_ms'], '10.3f')} "
-              f"{f(r['device_idle_share'], '6.1%')} {f(r['kernels'], '8.0f')}{fps}")
+              f"{f(r.get('device_idle_pct'), '7.3f')} {f(r['kernels'], '8.0f')}{fps}")
 
 
 def main(argv=None) -> int:

@@ -288,13 +288,29 @@ def ba_refine(
     veto, so every rank of a landmark-sharded window takes the same accept
     decision. None is the single-device solver.
     """
+    out, errs, _ = ba_refine_verdict(window, K, iters, damping, huber_px, reduce_fn, fix_scale)
+    return out, errs
+
+
+def ba_refine_verdict(
+    window: BAWindow,
+    K: torch.Tensor,
+    iters: int = 5,
+    damping: float = 1e-3,
+    huber_px: float = 2.0,
+    reduce_fn=None,
+    fix_scale: bool = True,
+) -> tuple[BAWindow, torch.Tensor, torch.Tensor]:
+    """`ba_refine`, and its accept veto's verdict: (...) bool, True on the
+    lanes whose refinement was kept."""
     if window.kf_pose.ndim == 2:
         # One window is a batch of one lane: the same reduction shapes as a
         # lane of a larger batch, so the two round alike (the 1e8 gauge
         # amplifies any difference in summation order).
-        out, errs = ba_refine(BAWindow(*(f[None] for f in window)), K.reshape(1, 3, 3),
-                              iters, damping, huber_px, reduce_fn, fix_scale)
-        return BAWindow(*(f[0] for f in out)), errs[0]
+        out, errs, accept = ba_refine_verdict(
+            BAWindow(*(f[None] for f in window)), K.reshape(1, 3, 3), iters, damping,
+            huber_px, reduce_fn, fix_scale)
+        return BAWindow(*(f[0] for f in out)), errs[0], accept[0]
     reduce_fn = reduce_fn or _same
     pose_shape = window.kf_pose.shape[:-1] + (4, 4)
     err0 = _mean_reproj_err(window, K, reduce_fn)
@@ -327,4 +343,4 @@ def ba_refine(
         refined.lm_valid[..., None] & ~torch.isfinite(refined.landmark)
     ).sum(dim=(-2, -1)))
     accept = torch.isfinite(err1) & (err1 <= err0 * 1.02) & (bad == 0)
-    return where_window(accept, refined, window), torch.stack(errs, dim=-1)
+    return where_window(accept, refined, window), torch.stack(errs, dim=-1), accept

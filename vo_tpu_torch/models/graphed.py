@@ -26,6 +26,13 @@ A frame is
 - The graph also adds each predicate to a device counter: the frames on
   which R and C ran are counted on the device and read when asked for
   (`RunnerStats.recoveries`, `.keyframes`), after the chunk.
+- Spans (models/spans.py), on unless the runner is built with
+  `spans=False`: a mark kernel at every boundary of the schedule (R's and
+  C's inside their bodies) stamps the card's clock into a device ring, one
+  row a step, and the end marks copy the step's counts of work there; the
+  frame loop stamps its host phases into a host ring of the same rows.
+  `summary()` reads both after the rollouts. With `spans=False` the frame's
+  graph holds no mark and no counter: the graph before spans, node for node.
 
 The results are the eager step's bit for bit: the same ops in the same
 order on the same values, and a branch that does not run leaves its
@@ -71,9 +78,10 @@ Static buffers and the hazards they bring:
 The capture mechanism is injectable. `CudaGraphs` captures on the card.
 `StandIn` is its CPU twin for the tests: "capture" runs a segment once and
 keeps it, "replay" runs it again on the same static buffers with counting
-suspended, as a graph's replay runs no Python, and an IF node evaluates its
-predicate itself, as the device does. Everything else above (the slots,
-the copies, the draws, the counts) is the same code.
+suspended, as a graph's replay runs no Python, an IF node evaluates its
+predicate itself, as the device does, and a span mark stamps the host's
+clock. Everything else above (the slots, the copies, the draws, the counts,
+the rings) is the same code.
 """
 
 from __future__ import annotations
@@ -85,20 +93,24 @@ import time
 import warnings
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
+from vo_tpu_torch.models import spans as spans_mod
 from vo_tpu_torch.models.pipeline import (
     ROLLED,
     Segments,
     StepOutput,
     VOState,
     map_state,
+    no_mark,
     recovery_shape,
     run_step,
     step_eigh,
     step_finish,
     step_keyframe,
     step_locate,
+    step_localize,
     step_map,
     step_recover,
     step_track,
@@ -327,6 +339,36 @@ class CudaGraphs:
                                "capturing; else a cudaError_t)")
         self.bodies[node.value] = [body.value]
 
+    def mark(self, ring: spans_mod.Ring, boundary: int, src: torch.Tensor | None,
+             dst: int) -> None:
+        """Span mark `boundary` on the current stream (csrc/spans.cu): inside
+        a capture, a kernel node; `src`, int64 counters copied into the row
+        from column `dst`."""
+        from vo_tpu_torch.ops._build import library
+
+        if src is not None and not (src.dtype == torch.int64 and src.is_contiguous()
+                                    and src.device == ring.table.device):
+            raise ValueError(f"span counters must be contiguous int64 on {ring.table.device}, "
+                             f"got {src.dtype} on {src.device}")
+        err = library().vo_span_mark_launch(
+            boundary, ctypes.c_void_p(ring.table.data_ptr()), ctypes.c_void_p(ring.seq.data_ptr()),
+            ring.rows, ring.table.shape[1],
+            None if src is None else ctypes.c_void_p(src.data_ptr()),
+            0 if src is None else src.numel(), dst,
+            ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"vo_span_mark_launch({boundary}) failed with {err}")
+
+    def clock(self, out: torch.Tensor) -> None:
+        """Two readings of the card's clock into `out` (2,) int64."""
+        from vo_tpu_torch.ops._build import library
+
+        err = library().vo_span_clock(
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"vo_span_clock failed with {err}")
+
     def count_syncs(self, fn: Callable[[], None]) -> int:
         """fn() under torch's sync debug mode ("warn"): the syncs that
         torch's detector reported (it does not see every kind)."""
@@ -372,6 +414,13 @@ class StandIn:
         if bool(pred):
             branch.replay()
 
+    def mark(self, ring: spans_mod.Ring, boundary: int, src: torch.Tensor | None,
+             dst: int) -> None:
+        spans_mod.host_mark(ring, boundary, src, dst)
+
+    def clock(self, out: torch.Tensor) -> None:
+        spans_mod.host_clock(out)
+
     def count_syncs(self, fn: Callable[[], None]) -> int:
         fn()
         return 0
@@ -406,7 +455,7 @@ class GraphedRollout:
     the first rollout's state and frame, then replayed by every rollout."""
 
     def __init__(self, cfg: VOConfig, state: VOState, frame: torch.Tensor,
-                 K: torch.Tensor, capture=None):
+                 K: torch.Tensor, capture=None, spans: bool = True):
         dev = frame.device
         self.cfg = cfg
         self.capture = capture if capture is not None else (
@@ -431,26 +480,36 @@ class GraphedRollout:
         self.rec_drawn = [Drawn(u) for u in self.rec_uniforms]
         self.rec_samplers = list(self.rec_drawn)
         self._slots: dict = {}
+        self.spans = spans_mod.Ring(dev, spans_mod.ROWS) if spans else None
+        self._counts: dict = {}  # boundary -> (counters its mark copies, first column)
+        mark = self._mark if spans else no_mark
         self._taken = {_storage(t) for t in _leaves(
             (self.state, self.image, self.K, self.uniforms, self.rec_uniforms,
              self.stats.taken))}
-        branches = {"R": self._r, "C": self._c}
-        if not cfg.recovery.enabled:
-            del branches["R"]
-        if not cfg.ba.enabled:  # without BA there is no keyframe decision and no C
-            del branches["C"]
+        bodies = {}
+
+        def warm(name, pred, run, skipped):
+            bodies[name] = run  # the branch's body as the schedule gives it, marks included
+            return run()
+
         with kernels.uncounted():
             with self.capture.warming_up():
                 # One frame of the schedule with every branch taken: the
                 # slots, and every lazy initialisation, outside capture.
-                run_step(self._segments(), lambda name, pred, run, skipped: run(), cfg)
-            self.branches = {name: self._capture(name, fn, branch=True)
-                             for name, fn in branches.items()}
+                # The schedule hands over the bodies of the branches the
+                # configuration has (without BA there is no C).
+                run_step(self._segments(), warm, cfg, mark)
+            self.branches = {name: self._capture(name, body, branch=True)
+                             for name, body in bodies.items()}
             self.frame = self._capture("frame", lambda: run_step(
-                self._segments(), self._if_node, cfg))
+                self._segments(), self._if_node, cfg, mark))
         self.stats.taken.zero_()  # the stand-in's capture ran the frame once
+        if self.spans is not None:
+            self.spans.reset()  # so did the warm-up's marks
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        if self.spans is not None:
+            self.spans.calibrate(self.capture)
         self.stats.capture_s = time.perf_counter() - t0
         graphs = {"frame": self.frame, **self.branches}
         self.stats.graphs = {name: None if g.nodes is None else g.nodes.nodes
@@ -488,8 +547,13 @@ class GraphedRollout:
     def _static(self) -> VOState:
         return self.state._replace(rng=self.samplers, rec_rng=self.rec_samplers)
 
-    def _a(self):
-        self.a = self._put("A", step_track(self._static(), self.image, self.K, self.cfg))
+    def _track(self):
+        self.front = step_track(self._static(), self.image, self.K, self.cfg,
+                                self.spans is not None)
+        return self.front
+
+    def _localize(self):
+        self.a = self._put("A", step_localize(self._static(), self.front, self.K, self.cfg))
         return self.a
 
     def _r(self):
@@ -502,20 +566,44 @@ class GraphedRollout:
         return self.b
 
     def _c(self):
-        return self._put("B2", step_keyframe(self.a, self.b, self.K, self.cfg))
+        if self.spans is None:
+            return self._put("B2", step_keyframe(self.a, self.b, self.K, self.cfg))
+        b, kept = step_keyframe(self.a, self.b, self.K, self.cfg, True)
+        if kept is not None:  # the lanes that ran BA, and those whose BA was kept
+            push = self.b.push
+            self._counts["C.end"] = (torch.stack([push, push & kept]).sum(dim=-1),
+                                     spans_mod.COL[spans_mod.BA_COUNTS[0]])
+        return self._put("B2", b)
 
     def _d(self):
         new, out = step_finish(self._static(), self.a, self.b)
         _copy_into(self.state, new)
         self.out = self._put("out", out)
+        if self.spans is not None:
+            # The step's counts, each summed over lanes, in STEP_COUNTS'
+            # order (LK's last, where it ran).
+            o = self.out
+            per_lane = [o.num_tracked, self.a.tri.sum(dim=-1), o.num_pnp_inliers,
+                        o.num_candidates, o.num_new_landmarks]
+            if self.front.lk_active is not None:
+                per_lane.append(self.front.lk_active)
+            self._counts["end"] = (torch.stack(per_lane).sum(dim=-1),
+                                   spans_mod.COL[spans_mod.STEP_COUNTS[0]])
         return self.out
+
+    def _mark(self, boundary: str) -> None:
+        """The span mark at `boundary`, with the counters a segment left for
+        it."""
+        src, dst = self._counts.get(boundary, (None, 0))
+        self.capture.mark(self.spans, spans_mod.BOUNDARY[boundary], src, dst)
 
     def _segments(self) -> Segments:
         """The schedule's segments (pipeline.run_step) over the static
         buffers. B1's and the eigh's results stay inside the frame's graph
         and need no slot."""
         return Segments(
-            track=self._a,
+            track=self._track,
+            localize=lambda f: self._localize(),
             recover=lambda a: self._r(),
             locate=lambda a: step_locate(self._static(), self.a, self.K, self.cfg),
             eigh=step_eigh,
@@ -571,79 +659,133 @@ class GraphedRollout:
         gens = self._bind(lanes, self.samplers, self.drawn, "PnP sampler")
         rec_gens = (self._bind(list(state.rec_rng), self.rec_samplers, self.rec_drawn,
                                "recovery sampler") if self.cfg.recovery.enabled else [])
-        _copy_into(self.state, state)
-        self.K.copy_(K)
+        # Under torch.profiler the phases are annotated in its trace, and the
+        # rollout's steps are flagged: they measure the tracer.
+        profiled = torch.autograd._profiler_enabled()
+        ring = self.spans
         n = images.shape[0]
-        outs = StepOutput(*(torch.empty((n,) + o.shape, dtype=o.dtype, device=o.device)
-                            for o in self.out))
+        with _annotated("vo.rollout", profiled):
+            t_in = time.monotonic_ns()
+            _copy_into(self.state, state)
+            self.K.copy_(K)
+            outs = StepOutput(*(torch.empty((n,) + o.shape, dtype=o.dtype, device=o.device)
+                                for o in self.out))
+            t_in_end = time.monotonic_ns()
+            first = 0 if ring is None else ring.steps + 1
+            self.stats.syncs += self.capture.count_syncs(
+                lambda: self._frames(images, outs, gens, rec_gens, profiled))
+            t_back = time.monotonic_ns()
+            final = map_state(torch.clone, self.state, rng=state.rng, rec_rng=state.rec_rng)
+            if ring is not None:
+                ring.rollouts.append(spans_mod.Rollout(first, n, profiled, t_in, t_in_end,
+                                                       t_back, time.monotonic_ns()))
+        self.stats.frames += n
+        ROLLED["graphs"] += n
+        return final, outs
+
+    def _frames(self, images: torch.Tensor, outs: StepOutput, gens: list, rec_gens: list,
+                profiled: bool) -> None:
+        """The frame loop: for each frame the draws, the frame's copy and the
+        replay, the output copies; each phase's start stamped in the host
+        ring (in a scratch row where the runner keeps no spans)."""
         rows, cols = self.uniforms.shape[1:]
         rec_rows = self.rec_uniforms.shape[1]
-
-        def frames():
-            for i in range(n):
-                self.image.copy_(images[i])
+        col = spans_mod.HCOL
+        scratch = np.zeros(len(spans_mod.HOST_COLUMNS), dtype=np.int64)
+        for i in range(images.shape[0]):
+            row = scratch if self.spans is None else self.spans.step(profiled)
+            row[col["draw"]] = time.monotonic_ns()
+            with _annotated("vo.step.draw", profiled):
                 for b, gen in gens:
                     self.uniforms[b].copy_(draw_uniforms(gen, rows, cols))
                 for b, gen in rec_gens:
                     self.rec_uniforms[b].copy_(draw_uniforms(gen, rec_rows, cols))
+            row[col["launch"]] = time.monotonic_ns()
+            with _annotated("vo.step.launch", profiled):
+                self.image.copy_(images[i])
                 self.frame.replay()
                 for counter, k in self.launches.items():
                     kernels.launch_counts[counter] += k
+            row[col["copy_out"]] = time.monotonic_ns()
+            with _annotated("vo.step.copy_out", profiled):
                 for f, o in zip(outs, self.out):
                     f[i].copy_(o)
+            row[col["done"]] = time.monotonic_ns()
 
-        self.stats.syncs += self.capture.count_syncs(frames)
-        self.stats.frames += n
-        ROLLED["graphs"] += n
-        return (map_state(torch.clone, self.state, rng=state.rng, rec_rng=state.rec_rng),
-                outs)
+    def span_readout(self) -> spans_mod.Readout | None:
+        """The runner's span rings, read now, after a new calibration of the
+        card's clock; None where the runner keeps no spans."""
+        if self.spans is None:
+            return None
+        if self.image.is_cuda:
+            torch.cuda.synchronize(self.image.device)
+        self.spans.calibrate(self.capture)
+        cfg, lanes = self.cfg, len(self.samplers)
+        slots = cfg.capacity * lanes
+        lk = cfg.klt.pyramid_levels * cfg.klt.max_iters if cfg.tracker == "klt" else 0
+        return self.spans.readout(dict(
+            slots=slots, lk_run=slots * lk,
+            pnp_hypotheses=pnp_budget(cfg.pnp.num_hypotheses) * lanes))
+
+
+def _annotated(name: str, profiled: bool):
+    """A torch.profiler annotation of `name` while the profiler runs;
+    nothing (not even the annotation's own cost) otherwise."""
+    return torch.profiler.record_function(name) if profiled else contextlib.nullcontext()
 
 
 def graphed_rollout(state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VOConfig,
-                    cache: RunnerCache = RUNNERS, capture=None) -> tuple[VOState, StepOutput]:
+                    cache: RunnerCache = RUNNERS, capture=None,
+                    spans: bool = True) -> tuple[VOState, StepOutput]:
     """`vo_rollout` / `batched_vo_rollout` through the runner that `cache`
     keeps for this configuration and shape, captured on first use."""
-    return runner_for(state, images, K, cfg, cache, capture)(state, images, K)
+    return runner_for(state, images, K, cfg, cache, capture, spans)(state, images, K)
 
 
 def runner_for(state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VOConfig,
-               cache: RunnerCache = RUNNERS, capture=None) -> GraphedRollout:
+               cache: RunnerCache = RUNNERS, capture=None,
+               spans: bool = True) -> GraphedRollout:
     """The cached runner for a rollout of `images` from `state` (built from
-    them if it is not there yet)."""
+    them if it is not there yet), with span marks and counters in its graph
+    unless `spans=False`."""
     if is_lane_samplers(state.rng):
         lanes, frame, K_b = state, images[0], K
     else:
         lanes = map_state(lambda x: x[None], state, rng=[state.rng], rec_rng=[state.rec_rng])
         frame, K_b = images[0][None], K.reshape(1, 3, 3)
     key = runner_key(cfg, frame.shape[0], frame.shape[-2], frame.shape[-1], frame.dtype,
-                     frame.device)
-    return cache.get(key, lambda: GraphedRollout(cfg, lanes, frame, K_b, capture))
+                     frame.device, spans)
+    return cache.get(key, lambda: GraphedRollout(cfg, lanes, frame, K_b, capture, spans))
 
 
 def capture_ahead(state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VOConfig,
-                  graph: bool = True) -> float:
-    """Capture now the runner that `vo_rollout(state, images, K, cfg, graph)`
-    (or `batched_vo_rollout`) will replay, so that a timed window holds
-    replays only (the JAX package compiles inside its warm-up). Returns the
-    seconds it took: 0.0 where the rollout runs eagerly, and next to nothing
-    where the runner is cached already."""
+                  graph: bool = True, spans: bool = True) -> float:
+    """Capture now the runner that `vo_rollout(state, images, K, cfg, graph,
+    spans)` (or `batched_vo_rollout`) will replay, so that a timed window
+    holds replays only (the JAX package compiles inside its warm-up).
+    Returns the seconds it took: 0.0 where the rollout runs eagerly, and next
+    to nothing where the runner is cached already."""
     if not (graph and images.is_cuda):
         return 0.0
     t0 = time.perf_counter()
-    runner_for(state, images, K, cfg)
+    runner_for(state, images, K, cfg, spans=spans)
     return time.perf_counter() - t0
 
 
 def summary(cache: RunnerCache = RUNNERS) -> dict | None:
     """What the cache's runners replayed, for a JSON line: host syncs a
     frame, the frames on which R and C ran (the device counts, read here),
-    and each runner's graphs with their nodes and conditional nodes. None
-    where no runner was built."""
+    each runner's graphs with their nodes and conditional nodes, and
+    `spans`, the aggregates of the runners' span rings over the steps not
+    run under the profiler (`spans.statistics`; None where no runner keeps
+    spans or no step counts). Reading the rings recalibrates the card's
+    clock. None where no runner was built."""
     runners = cache.runners()
     if not runners:
         return None
     stats = [r.stats for r in runners]
     frames = sum(s.frames for s in stats)
+    readouts = [x for x in span_rows(cache) if x is not None]
     return dict(
         frames=frames,
         syncs_per_step=sum(s.syncs for s in stats) / max(frames, 1),
@@ -652,4 +794,12 @@ def summary(cache: RunnerCache = RUNNERS) -> dict | None:
         graphs=[dict(lanes=len(r.samplers), nodes=r.stats.graphs,
                      conditional_nodes=r.stats.conditionals, frames=r.stats.frames,
                      capture_s=round(r.stats.capture_s, 3)) for r in runners],
+        spans=spans_mod.statistics(readouts) if readouts else None,
     )
+
+
+def span_rows(cache: RunnerCache = RUNNERS) -> list:
+    """Every runner's span rings as read now (`spans.Readout`; None for a
+    runner without spans), in the order the runners were built: the raw
+    rows, for tools and tests."""
+    return [r.span_readout() for r in cache.runners()]

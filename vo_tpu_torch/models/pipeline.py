@@ -6,11 +6,12 @@ harris, sift: frame-to-frame descriptor matching).
 of its tensors. The reference's two `lax.cond`s (visual recovery when PnP
 fails, keyframe push + BA) are branches on a device predicate here, and
 everything else is static-shape masked tensor work, as in the reference.
-The step is written as segments: `step_track` (A), `step_recover` (R),
-`step_locate` (B1), `step_eigh`, `step_map` (B2), `step_keyframe` (C),
-`step_finish` (D), and one schedule, `run_step`, which takes the two
-predicates as device tensors. `vo_step` reads each predicate on the host
-and skips a branch nobody takes; `vo_rollout` on a CUDA state replays the
+The step is written as segments: `step_track` and `step_localize` (A:
+tracking, then PnP), `step_recover` (R), `step_locate` (B1), `step_eigh`,
+`step_map` (B2), `step_keyframe` (C), `step_finish` (D), and one schedule,
+`run_step`, which takes the two predicates as device tensors and marks
+every boundary between segments (`BOUNDARIES`). `vo_step` reads each
+predicate on the host and skips a branch nobody takes; `vo_rollout` on a CUDA state replays the
 whole step as ONE CUDA graph a frame, R and C as IF conditional nodes
 decided on the device (models/graphed.py), the counterpart of the
 reference's jit-compiled scan; elsewhere, or with `graph=False`, it is a
@@ -51,7 +52,7 @@ from vo_tpu_torch.geom.lie import pose_inverse
 from vo_tpu_torch.geom.points import bmat, device_vector, inverse, lift
 from vo_tpu_torch.models.ba import (
     BAWindow,
-    ba_refine,
+    ba_refine_verdict,
     empty_window,
     push_keyframe,
     where_window,
@@ -75,7 +76,7 @@ from vo_tpu_torch.ops.epipolar import (
 from vo_tpu_torch.ops.descriptors import extract_patches, match_descriptors
 from vo_tpu_torch.ops.harris import detect_keypoints, refine_corners_subpixel
 from vo_tpu_torch.ops.image import build_pyramid
-from vo_tpu_torch.ops.klt import TrackResult, pyramidal_lk
+from vo_tpu_torch.ops.klt import TrackResult, pyramidal_lk_counted
 from vo_tpu_torch.ops.pnp import pnp_ransac
 from vo_tpu_torch.ops.ransac import (
     Drawn,
@@ -362,13 +363,15 @@ def _proj_matrix(pose: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return lift(K, pose.ndim) @ pose_inverse(pose)[..., :3, :4]
 
 
-def _lk(prev_pyr, next_pyr, xy, cfg: VOConfig, init_flow=None):
+def _lk(prev_pyr, next_pyr, xy, cfg: VOConfig, init_flow=None, count: bool = False):
+    """(TrackResult, the point-iterations still active or None): see
+    `pyramidal_lk_counted`."""
     k = cfg.klt
-    return pyramidal_lk(
+    return pyramidal_lk_counted(
         list(prev_pyr), list(next_pyr), xy,
         radius=k.radius, max_iters=k.max_iters, eps=k.eps, max_err=k.max_err,
         min_eig_threshold=k.min_eig_threshold, use_pallas=k.use_pallas,
-        init_flow=init_flow,
+        init_flow=init_flow, count=count,
     )
 
 
@@ -469,7 +472,7 @@ def bootstrap(
     if cfg.tracker == "klt":
         pyr0 = build_pyramid(image0, cfg.klt.pyramid_levels)
         pyr1 = tuple(build_pyramid(image1, cfg.klt.pyramid_levels))
-        tr = _lk(pyr0, pyr1, kps.xy, cfg)
+        tr, _ = _lk(pyr0, pyr1, kps.xy, cfg)
         desc1, sigma1 = kps.desc, kps.sigma
     else:
         pyr1 = (image1,)
@@ -538,7 +541,7 @@ def bootstrap(
 
 def vo_rollout(
     state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VOConfig,
-    graph: bool = True,
+    graph: bool = True, spans: bool = True,
 ) -> tuple[VOState, StepOutput]:
     """Run `vo_step` over a stacked (N, H, W) frame chunk; returns the final
     state and the per-frame StepOutputs stacked along a leading axis.
@@ -550,11 +553,13 @@ def vo_rollout(
     jit-compiled `lax.scan`. The results are the eager loop's bit for bit; a
     capture or replay that fails raises. `graph=False` runs the eager loop
     (the counterpart of `jax.disable_jit`), as the CPU always does. The
-    caller's state is never written."""
+    captured step carries its span marks and counters (models/spans.py)
+    unless `spans=False`, a runner of its own. The caller's state is never
+    written."""
     if graph and images.is_cuda:
         from vo_tpu_torch.models.graphed import graphed_rollout
 
-        return graphed_rollout(state, images, K, cfg)
+        return graphed_rollout(state, images, K, cfg, spans=spans)
     outs = []
     for img in images:
         state, out = vo_step(state, img, K, cfg)
@@ -612,6 +617,7 @@ def vo_step(
     rec = recovery_samplers(state.rec_rng, cfg) if cfg.recovery.enabled else None
     eager = Segments(
         track=lambda: step_track(state, image, K, cfg),
+        localize=lambda f: step_localize(state, f, K, cfg),
         recover=lambda a: a._replace(pose_fb=step_recover(state, a, K, cfg, rec)),
         locate=lambda a: step_locate(state, a, K, cfg),
         eigh=step_eigh,
@@ -628,7 +634,8 @@ class Segments(NamedTuple):
     (models/graphed.py) captures them into its graphs, where they write
     static buffers."""
 
-    track: Callable[[], Any]  # A -> Tracked
+    track: Callable[[], Any]  # A's front end -> Front
+    localize: Callable[[Any], Any]  # A's PnP (f) -> Tracked
     recover: Callable[[Any], Any]  # R (a) -> Tracked, the lost lanes' fallback replaced
     locate: Callable[[Any], Any]  # B1 (a) -> Located
     eigh: Callable[[Any], Any]  # (g) -> the DLT's eigenvectors
@@ -641,24 +648,67 @@ class Segments(NamedTuple):
 # (a bool tensor) holds, else `skipped`, the results as they stand.
 Branch = Callable[[str, torch.Tensor, Callable[[], Any], Any], Any]
 
+# The boundaries `run_step` marks, in step order: the frame's start; the
+# ends of A's two parts; R's start and end, inside R's branch; the ends of
+# B1, the eigh and B2; C's start and end, inside C's branch; the frame's end,
+# after D.
+BOUNDARIES = ("start", "track", "localize", "R.start", "R.end", "locate", "eigh", "map",
+              "C.start", "C.end", "end")
 
-def run_step(seg: Segments, branch: Branch, cfg: VOConfig):
-    """The step's schedule, the one place it is written: A; with the
-    recovery on, R under "a lane lost its pose"; B1, eigh, B2; with BA on,
-    C under "a lane pushes a keyframe"; D. Each predicate is a device
-    tensor over the lanes, as the reference's `lax.cond`s take theirs;
-    `branch` decides how it is taken (`eager_branch` reads it, the captured
-    rollout makes it a conditional node). Inside a branch the work stays
-    lane by lane: a lane keeps the branch's result only under its own
-    predicate."""
-    a = seg.track()
+
+def no_mark(boundary: str) -> None:
+    """The eager step's mark: nothing."""
+
+
+def _marked(mark: Callable[[str], None], name: str, run: Callable[[], Any]):
+    """Branch `name`'s body: `run` between the branch's start and end marks."""
+    def body():
+        mark(f"{name}.start")
+        out = run()
+        mark(f"{name}.end")
+        return out
+
+    return body
+
+
+def run_step(seg: Segments, branch: Branch, cfg: VOConfig,
+             mark: Callable[[str], None] = no_mark):
+    """The step's schedule, the one place it is written: A (the front end,
+    then PnP); with the recovery on, R under "a lane lost its pose"; B1,
+    eigh, B2; with BA on, C under "a lane pushes a keyframe"; D. Each
+    predicate is a device tensor over the lanes, as the reference's
+    `lax.cond`s take theirs; `branch` decides how it is taken
+    (`eager_branch` reads it, the captured rollout makes it a conditional
+    node). Inside a branch the work stays lane by lane: a lane keeps the
+    branch's result only under its own predicate.
+
+    `mark(boundary)` is called at every boundary of `BOUNDARIES`, between
+    one segment's last work and the next one's first; a branch's start and
+    end marks are part of the body that `branch` gets, so they run where
+    the branch runs. A predicate and its branch's test count with the
+    segment after the branch. Every segment enqueues its work on the one
+    stream the step runs on, library calls included (a library that forks
+    onto streams of its own joins them before its later work on that
+    stream), so a mark follows all of the work before it: no segment needs
+    a join before its end mark."""
+    mark("start")
+    f = seg.track()
+    mark("track")
+    a = seg.localize(f)
+    mark("localize")
     if cfg.recovery.enabled:
-        a = branch("R", (~a.pose_ok).any(), lambda: seg.recover(a), a)
+        a = branch("R", (~a.pose_ok).any(), _marked(mark, "R", lambda: seg.recover(a)), a)
     g = seg.locate(a)
-    b = seg.map(a, g, seg.eigh(g))
+    mark("locate")
+    vecs = seg.eigh(g)
+    mark("eigh")
+    b = seg.map(a, g, vecs)
+    mark("map")
     if cfg.ba.enabled:
-        b = branch("C", b.push.any(), lambda: seg.keyframe(a, b), b)
-    return seg.finish(a, b)
+        b = branch("C", b.push.any(), _marked(mark, "C", lambda: seg.keyframe(a, b)), b)
+    out = seg.finish(a, b)
+    mark("end")
+    return out
 
 
 def eager_branch(name: str, pred: torch.Tensor, run: Callable[[], Any], skipped: Any):
@@ -666,6 +716,22 @@ def eager_branch(name: str, pred: torch.Tensor, run: Callable[[], Any], skipped:
     branch skipped where no lane takes it (which gives the bits of a
     conditional node that does not run)."""
     return run() if bool(pred) else skipped
+
+
+class Front(NamedTuple):
+    """The results of A's front end (`step_track`; every field with the lane
+    axis)."""
+
+    Kinv: torch.Tensor  # (B, 3, 3)
+    table: FeatureTable  # after tracking: xy, state, miss (desc, sigma when matching)
+    tracked: torch.Tensor  # (B, K) occupied and observed this frame: feeds geometry
+    xy_u: torch.Tensor  # (B, K, 2) ideal-pinhole positions
+    track_xy_u: torch.Tensor  # (B, K, 2) ideal-pinhole track starts
+    rel_cv: torch.Tensor  # (B, 4, 4) last step's motion
+    pyramid: tuple  # this frame's pyramid (klt) or (image,)
+    det: Detections | None  # this frame's detections (harris, sift; klt: None)
+    used: torch.Tensor | None  # (B, C) detections consumed by matching
+    lk_active: torch.Tensor | None = None  # (B,) LK point-iterations still active, if counted
 
 
 class Tracked(NamedTuple):
@@ -719,10 +785,10 @@ class Mapped(NamedTuple):
 
 
 def step_track(state: VOState, image: torch.Tensor, K: torch.Tensor,
-               cfg: VOConfig) -> Tracked:
-    """Segment A: the front end (tracking every occupied slot), PnP and the
-    constant-velocity fallback. Its one random draw is PnP's, from
-    `state.rng`."""
+               cfg: VOConfig, count: bool = False) -> Front:
+    """Segment A's first part, the front end: the pyramid, tracking every
+    occupied slot (LK or matching) and the table's update. With `count`,
+    LK's point-iterations still active ride along (`Front.lk_active`)."""
     table = state.table
     Kinv = inverse(K)
 
@@ -754,11 +820,12 @@ def step_track(state: VOState, image: torch.Tensor, K: torch.Tensor,
             if any(cfg.dist):
                 guess = _camera(K, cfg).distort_points(guess)
             init_flow = guess - table.xy
-        tr = _lk(state.pyramid, pyr_new, table.xy, cfg, init_flow)
+        tr, lk_active = _lk(state.pyramid, pyr_new, table.xy, cfg, init_flow, count)
         det = None
         used = None
     else:
         pyr_new = (image,)
+        lk_active = None
         det = _detect_mode(image, cfg)
         ratio, max_move = _mode_match_params(cfg)
         tr, midx, used = _match_track(
@@ -793,9 +860,16 @@ def step_track(state: VOState, image: torch.Tensor, K: torch.Tensor,
 
     xy_u = _undistort(table.xy, K, cfg)
     track_xy_u = _undistort(table.track_xy, K, cfg)
+    return Front(Kinv, table, fresh, xy_u, track_xy_u, rel_cv, pyr_new, det, used, lk_active)
 
+
+def step_localize(state: VOState, f: Front, K: torch.Tensor, cfg: VOConfig) -> Tracked:
+    """Segment A's second part: PnP on the triangulated slots and the
+    constant-velocity fallback. Its one random draw is PnP's, from
+    `state.rng`."""
     # ---- 2. P3P localization on triangulated slots ----
-    tri = (table.state == STATE_TRIANGULATED) & fresh
+    table, xy_u = f.table, f.xy_u
+    tri = (table.state == STATE_TRIANGULATED) & f.tracked
     pnp = pnp_ransac(
         state.rng, table.landmark, xy_u, K, valid=tri,
         inlier_threshold_px=cfg.pnp.inlier_threshold_px,
@@ -806,14 +880,14 @@ def step_track(state: VOState, image: torch.Tensor, K: torch.Tensor,
     pose_pnp = pose_inverse(pnp.T_cw)
     # Fallback tier 1: constant velocity, translation pinned to the last
     # validated speed.
-    t_cv = rel_cv[..., :3, 3]
+    t_cv = f.rel_cv[..., :3, 3]
     n_cv = torch.linalg.vector_norm(t_cv, dim=-1, keepdim=True)
     t_pin = t_cv * (state.last_speed[..., None] / torch.clamp(n_cv, min=1e-12))
-    rel_pinned = rel_cv.clone()
+    rel_pinned = f.rel_cv.clone()
     rel_pinned[..., :3, 3] = torch.where(n_cv > 1e-12, t_pin, t_cv)
     pose_cv = state.pose @ rel_pinned
-    return Tracked(Kinv, table, tracked, xy_u, track_xy_u, tri, pnp, pose_ok, pose_pnp,
-                   pose_cv, pyr_new, det, used)
+    return Tracked(f.Kinv, table, f.tracked, xy_u, f.track_xy_u, tri, pnp, pose_ok, pose_pnp,
+                   pose_cv, f.pyramid, f.det, f.used)
 
 
 def step_recover(state: VOState, a: Tracked, K: torch.Tensor, cfg: VOConfig,
@@ -973,18 +1047,22 @@ def step_map(state: VOState, a: Tracked, g: Located, vecs: torch.Tensor,
                   window, state.last_kf_idx, push, new_frame_idx)
 
 
-def step_keyframe(a: Tracked, b: Mapped, K: torch.Tensor, cfg: VOConfig) -> Mapped:
+def step_keyframe(a: Tracked, b: Mapped, K: torch.Tensor, cfg: VOConfig,
+                  verdict: bool = False):
     """Segment C, run only when a lane pushes: the keyframe push and the
     windowed BA. They run for all lanes when any lane pushes; each lane
-    keeps them only under its own predicate."""
+    keeps them only under its own predicate. Returns the Mapped results or,
+    with `verdict`, (Mapped, the lanes whose BA the accept veto kept, or
+    None where BA is not part of the step)."""
     table = b.table
     pushed = push_keyframe(
         b.window, b.pose, a.xy_u, table.landmark, table.uid,
         (table.state == STATE_TRIANGULATED) & a.tracked,
     )
     landmark = table.landmark
+    kept = None
     if cfg.ba.refine_in_step:
-        pushed, _ = ba_refine(
+        pushed, _, kept = ba_refine_verdict(
             pushed, K, iters=cfg.ba.iters,
             damping=cfg.ba.damping, huber_px=cfg.ba.huber_px,
         )
@@ -996,12 +1074,13 @@ def step_keyframe(a: Tracked, b: Mapped, K: torch.Tensor, cfg: VOConfig) -> Mapp
         )
         landmark = torch.where(match[..., None], pushed.landmark, table.landmark)
     kf_pose = pushed.kf_pose[..., -1, :].reshape(b.pose.shape)
-    return b._replace(
+    mapped = b._replace(
         table=table._replace(landmark=landmark),
         window=where_window(b.push, pushed, b.window),
         pose=where_lane(b.push, kf_pose, b.pose),
         last_kf_idx=torch.where(b.push, b.new_frame_idx, b.last_kf_idx),
     )
+    return (mapped, kept) if verdict else mapped
 
 
 def step_finish(state: VOState, a: Tracked, b: Mapped) -> tuple[VOState, StepOutput]:

@@ -52,6 +52,11 @@ _SIGNATURES = {
     # (capturing stream, device bool, branch graph, IF node out, body graph
     # out) — an IF node in the graph being captured (csrc/graph_cond.cu)
     "vo_graph_if_node": (_P, _P, _P, _P, _P),
+    # (boundary, ring, seq, rows, cols, src, n, dst, stream) — a span mark on
+    # the card's clock (csrc/spans.cu)
+    "vo_span_mark_launch": (_I, _P, _P, _I, _I, _P, _I, _I, _P),
+    # (out[2], stream) — two readings of the card's clock, for the calibration
+    "vo_span_clock": (_P, _P),
 }
 
 

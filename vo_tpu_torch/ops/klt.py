@@ -74,9 +74,13 @@ def _lk_level(
     eps: float,
     min_eig_threshold: float,
     use_pallas: bool | None = None,
+    actives: list | None = None,
 ):
     """One pyramid level of Bouguet LK for all keypoints. Returns
-    (flow (..., K, 2), conditioned (..., K) bool, err (..., K))."""
+    (flow (..., K, 2), conditioned (..., K) bool, err (..., K)). Where a
+    list `actives` is given, each iteration appends to it the (..., K) mask
+    of the points it moves (nothing is computed for that: the masks are the
+    loop's own)."""
     h, w = prev_img.shape[-2:]
     win = 2 * radius + 1
     # Corners are in the coordinates of the level edge-replicated by `pad`,
@@ -126,6 +130,8 @@ def _lk_level(
     d = torch.zeros_like(pt_prev)
     active = conditioned
     for _ in range(max_iters):
+        if actives is not None:
+            actives.append(active)
         diff = T - sample_next(s_base + d)
         bx = (diff * Ix).sum(dim=(-2, -1))
         by = (diff * Iy).sum(dim=(-2, -1))
@@ -157,6 +163,28 @@ def pyramidal_lk(
     levels. `init_flow`, shaped as xy, seeds the level-0 flow
     (motion-model prediction); non-finite or absurd guesses fall back to 0.
     `use_pallas` routes the patch gathers: None = by device, False = plain."""
+    return pyramidal_lk_counted(prev_pyr, next_pyr, xy, radius, max_iters, eps, max_err,
+                                min_eig_threshold, use_pallas, init_flow, count=False)[0]
+
+
+def pyramidal_lk_counted(
+    prev_pyr: Sequence[torch.Tensor],
+    next_pyr: Sequence[torch.Tensor],
+    xy: torch.Tensor,
+    radius: int = 8,
+    max_iters: int = 10,
+    eps: float = 0.03,
+    max_err: float = 25.0,
+    min_eig_threshold: float = 1e-4,
+    use_pallas: bool | None = None,
+    init_flow: torch.Tensor | None = None,
+    count: bool = True,
+) -> tuple[TrackResult, torch.Tensor | None]:
+    """`pyramidal_lk` and, with `count`, the point-iterations still active,
+    whose update the solver applies (its `active` mask, summed over
+    iterations, levels and points; per lane with a lane axis), else None. The masks are summed
+    once, after every level's loop; the track itself is `pyramidal_lk`'s bit
+    for bit."""
     levels = len(prev_pyr)
     if init_flow is None:
         flow = torch.zeros_like(xy)
@@ -170,11 +198,12 @@ def pyramidal_lk(
         flow = torch.where(sane[..., None], init_flow, 0.0) / (2.0 ** (levels - 1))
     conditioned = torch.ones(xy.shape[:-1], dtype=torch.bool, device=xy.device)
     err = torch.zeros(xy.shape[:-1], dtype=torch.float32, device=xy.device)
+    actives = [] if count else None
     for lvl in range(levels - 1, -1, -1):
         scale = 2.0**lvl
         flow, cond_l, err = _lk_level(
             prev_pyr[lvl], next_pyr[lvl], xy / scale, flow,
-            radius, max_iters, eps, min_eig_threshold, use_pallas,
+            radius, max_iters, eps, min_eig_threshold, use_pallas, actives,
         )
         if lvl > 0:
             flow = flow * 2.0
@@ -188,4 +217,5 @@ def pyramidal_lk(
         & (new_xy[..., 1] < h - radius)
     )
     status = conditioned & in_bounds & (err < max_err)
-    return TrackResult(xy=new_xy, status=status, err=err)
+    active = torch.stack(actives).sum(dim=(0, -1)) if actives else None
+    return TrackResult(xy=new_xy, status=status, err=err), active

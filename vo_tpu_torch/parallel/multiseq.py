@@ -79,13 +79,14 @@ def batched_vo_step(
 
 def batched_vo_rollout(
     states: VOState, images: torch.Tensor, Ks: torch.Tensor, cfg: VOConfig,
-    graph: bool = True,
+    graph: bool = True, spans: bool = True,
 ) -> tuple[VOState, StepOutput]:
     """`vo_rollout` over a stacked (N, B, H, W) frame block: N sequential
     frames of B independent sequences in lockstep, after checking the
     shapes. Returns the final batched state and the per-frame StepOutputs
     stacked to (N, B, ...). On CUDA lanes the step replays as CUDA graphs
-    (models/graphed.py); `graph=False` and the CPU run the eager loop."""
+    (models/graphed.py), with its spans unless `spans=False`; `graph=False`
+    and the CPU run the eager loop."""
     if not is_lane_samplers(states.rng):
         raise ValueError("batched_vo_rollout needs a batched state (replicate_state / "
                          "stack_states)")
@@ -94,7 +95,7 @@ def batched_vo_rollout(
         raise ValueError(
             f"{b} lanes need images (N, B, H, W) and Ks (B, 3, 3), got "
             f"{tuple(images.shape)} and {tuple(Ks.shape)}")
-    return vo_rollout(states, images, Ks, cfg, graph)
+    return vo_rollout(states, images, Ks, cfg, graph, spans)
 
 
 def shard_batched_state(states: VOState, mesh) -> VOState:

@@ -21,13 +21,15 @@ from typing import Any, Callable
 from vo_tpu_torch.utils.config import VOConfig
 
 
-def runner_key(cfg: VOConfig, batch: int, height: int, width: int, dtype, device) -> tuple:
-    """(cfg, lanes, frame height, frame width, frame dtype, device): what
-    fixes the shapes, the types and the code a capture records. `cfg` holds
-    the capacity, the kernel routing and what decides the graph's shape:
-    the recovery on or off (an IF node for R or none) and BA on or off (an
-    IF node for C or none)."""
-    return (cfg, batch, height, width, dtype, str(device))
+def runner_key(cfg: VOConfig, batch: int, height: int, width: int, dtype, device,
+               spans: bool = True) -> tuple:
+    """(cfg, lanes, frame height, frame width, frame dtype, device, spans):
+    what fixes the shapes, the types and the code a capture records. `cfg`
+    holds the capacity, the kernel routing and what decides the graph's
+    shape: the recovery on or off (an IF node for R or none) and BA on or
+    off (an IF node for C or none); `spans`, the step's span marks and
+    counters in the graph or not (models/spans.py)."""
+    return (cfg, batch, height, width, dtype, str(device), bool(spans))
 
 
 class RunnerCache:

@@ -25,6 +25,14 @@ Phases:
   6. `k2b`: the gather kernel over 6 lanes, (6, 516, 676) and the coarsest
      level (6, 96, 116) with (6, 512, 2) corners, sizes 21/35, bit-identical;
      then the pair over 6 lanes at the four level shapes; timed;
+  6b. `lk`, `lkb`: the LK solve kernel (csrc/lk_solve.cu) against its plain
+     version (ops/klt.py `lk_solve_plain`) on the patches each level of a
+     `pyramidal_lk_counted` call over the headline's city gathers, K=1024
+     points a lane (half its strongest corners, half anywhere), one lane and
+     six: G's condition, flows within 1e-3 px and errors within 1e-4 of the
+     tracked points, live iterations within 0.5%; each of the four 480x640
+     levels timed beside its bound (the patches read once, the outputs
+     written once);
   7. `headline`: bench_torch.py's headline through its own
      `bench_synthetic_full`: the synthetic city written to disk by
      `generate` and read back through `Sequence("synthetic")`, two frames
@@ -62,8 +70,10 @@ Phases:
      phase's own result (ATE within 5% of tools/headline_expected_torch.json;
      a rehearsal with fewer frames reports and does not gate); (b)
      repro_headline_torch over the first 24 frames (`--repro-frames`) with
-     the kernels on, K2 off, K1 off and both off: each toggle's launch
-     counts, and K2 off bit-equal to the default; (c) probe_ablate_torch's six
+     the kernels on, K2 off, K1 off and both off: each toggle's K1, K2 and
+     LK solve launches, and with the klt kernels off (K2 and the LK solve)
+     the poses of the plain solve bit for bit (REPRO_PLAIN_POSES_SHA256,
+     gated at 24 frames only); (c) probe_ablate_torch's six
      variants at 1226x370, 4 steps (`--tools-steps`): finite, 0 frozen, bench
      (b)'s launches for the depth; (d) ablate_step_cost_torch's nine variants,
      4 steps: finite; (e) ablate_keyframes_torch on the stop-and-go city,
@@ -308,6 +318,13 @@ TOOLS_STEPS = 4  # probe_ablate and ablate_step_cost, a warm-up and one timed ro
 # first stop (frames 70-115), where the adaptive policy stops pushing.
 TOOLS_KEYFRAMES_FIRST, TOOLS_KEYFRAMES_FRAMES = 64, 24
 TOOLS_DEBUG_FIRST, TOOLS_DEBUG_LAST = 6, 10
+# The repro's `klt_pallas_off` runs K2's and LK's plain versions. Before the
+# LK solve kernel the default ran K2's kernel (bit-equal to its plain
+# version) and the plain solve, so `klt_pallas_off` must give that default's
+# poses bit for bit: their `poses_sha256` over the first TOOLS_REPRO_FRAMES
+# frames of the headline's city, taken from the default of the commit before
+# the kernel on an NVIDIA H100 80GB HBM3 (700 W), in two processes.
+REPRO_PLAIN_POSES_SHA256 = "b33282b8fbb24bc3"
 # Inputs one phase leaves for a later one (the headline's BA window and ATE,
 # the loop's pose graph).
 HANDOFF: dict = {}
@@ -421,6 +438,13 @@ def _pair_bound(record: dict, img_shape, k: int) -> None:
     n_s = lanes * k * LK_SSIZE * LK_SSIZE
     n_cor = 2 * lanes * k * 2
     _bound(record, (n_t + n_s + min(n_t, n_img) + min(n_s, n_img) + n_cor) * 4, 0)
+
+
+def _with_lk(want: dict) -> dict:
+    """Launch counts wanted of a run, with the LK solve's: one launch beside
+    each gather pair (one a pyramid level), batched where the pair is."""
+    return {**want, "lk_solve": want["extract_patches"],
+            "lk_solve_batched": want["extract_patches_batched"]}
 
 
 def phase_k1(dev, record: dict) -> None:
@@ -655,6 +679,121 @@ def phase_k2b(dev, record: dict) -> None:
     _pair_record(record, timed[0], (b,) + LK_LEVEL_SHAPES[0], k)
 
 
+def _lk_bound(record: dict, lanes: int, k: int) -> None:
+    """The LK solve of a level reads both patch sets once and each point's
+    sub-pixel offset, search origin and guess, and writes its flow,
+    condition, error and live iterations once (counted as the pair's bound
+    counts the patches it writes)."""
+    n = lanes * k
+    patches = n * (LK_TSIZE * LK_TSIZE + LK_SSIZE * LK_SSIZE) * 4
+    _bound(record, patches + n * (2 * 2 * 4 + 2 * 4) + n * (2 * 4 + 1 + 4 + 4), 0)
+
+
+def _lk_levels_kept(dev, lanes: int, k: int) -> list:
+    """The arguments of each level's `lk_solve` in one `pyramidal_lk_counted`
+    call over the headline's city at 640x480, frames i and i + 2 in lane i,
+    K points a lane: its strongest corners for half of them, the rest
+    anywhere in the frame (many not conditioned, as on the path). Coarsest
+    level first, as (the level's (h, w), its arguments)."""
+    import torch
+    from vo_tpu_torch.data import synthetic
+    from vo_tpu_torch.ops import image as timg
+    from vo_tpu_torch.ops import kernels, klt
+
+    frames = synthetic.render_sequence(synthetic.DEFAULT_SPEC, dev, lanes + 2).frames
+    h, w = frames.shape[-2:]
+    rng = np.random.default_rng(19)
+    pts = []
+    for b in range(lanes):
+        resp = kernels.corner_response_nms(frames[b], "shi_tomasi", 7, 0.08, 8)
+        top = torch.topk(torch.nan_to_num(resp, neginf=-1.0).flatten(), k // 2).indices
+        rest = rng.uniform(0, [w - 1, h - 1], (k - k // 2, 2)).astype(np.float32)
+        pts.append(torch.cat([torch.stack([top % w, top // w], -1).float(),
+                              torch.as_tensor(rest, device=dev)]))
+    xy, prev, nxt = torch.stack(pts), frames[:lanes], frames[2:lanes + 2]
+    if lanes == 1:
+        xy, prev, nxt = xy[0], prev[0], nxt[0]
+    kept, real = [], klt.lk_solve
+
+    def keeping(*args, **kwargs):
+        kept.append(args[:9])  # the level's inputs, without its count list
+        return real(*args, **kwargs)
+
+    p0 = timg.build_pyramid(prev, len(LK_LEVEL_SHAPES))
+    klt.lk_solve = keeping
+    try:
+        klt.pyramidal_lk_counted(p0, timg.build_pyramid(nxt, len(LK_LEVEL_SHAPES)), xy)
+    finally:
+        klt.lk_solve = real
+    return list(zip([tuple(p.shape[-2:]) for p in reversed(p0)], kept))
+
+
+def _lk_parity(dev, tag: str, record: dict, lanes: int, k: int) -> None:
+    """The LK solve kernel against `lk_solve_plain` on each level's own
+    patches: G's condition on 99.9% of the points or more and the live
+    iterations within 0.5%; of the points both call conditioned with an
+    error under 25, those both stopped by the eps test after the same
+    iterations within 1e-3 px and 1e-4 of the error (relative, 1e-4 absolute
+    at the floor), and 99% of all of them within 1e-3 px (one still moving
+    after max_iters has no answer up to rounding, one whose last update sits
+    on the eps test may stop an iteration apart); each level timed beside
+    its bound."""
+    import torch
+    from vo_tpu_torch.ops import kernels, klt
+
+    levels, fails = [], []
+    for hw, args in _lk_levels_kept(dev, lanes, k):
+        got_live, want_live = [], []
+        flow, cond, err = kernels.lk_solve(*args, got_live, use_kernel=True)
+        pflow, pcond, perr = klt.lk_solve_plain(*args, want_live)
+        torch.cuda.synchronize()
+        live, plive = got_live[0].long(), want_live[0].long()
+        both = cond & pcond & (err < 25.0) & (perr < 25.0)
+        settled = both & (live == plive) & (live < args[6])
+        gap = (flow - pflow).abs().amax(-1)
+        egap = (err - perr).abs()[settled]
+        row = dict(level=list(hw), points=lanes * k, tracked=int(both.sum()),
+                   settled=int(settled.sum()),
+                   cond_equal_share=float((cond == pcond).float().mean()),
+                   flow_gap_px_settled=float(gap[settled].max()),
+                   flow_gap_px_max=float(gap[both].max()),
+                   flow_within_share=float((gap[both] <= 1e-3).float().mean()),
+                   err_gap_rel_settled=float((egap / perr[settled].abs().clamp(min=1.0)).max()),
+                   live_kernel=int(live.sum()), live_plain=int(plive.sum()))
+        if not (row["cond_equal_share"] >= 0.999 and row["flow_gap_px_settled"] <= 1e-3
+                and bool((egap <= 1e-4 * perr[settled].abs() + 1e-4).all())
+                and row["flow_within_share"] >= 0.99
+                and abs(row["live_kernel"] - row["live_plain"]) <= 0.005 * row["live_plain"]):
+            fails.append(f"level {row['level']}: {row}")
+
+        def kernel(a=args):
+            return kernels.lk_solve(*a, use_kernel=True)
+
+        row["ms"], row["plain_ms"] = _interleaved(lambda a=args: klt.lk_solve_plain(*a), kernel)
+        row["device_ms"] = _device_ms(kernel)
+        _lk_bound(row, lanes, k)
+        print(f"[{tag}] {lanes} x {k} points on {hw}: {json.dumps(row)}")
+        levels.append(row)
+    finest = levels[-1]
+    record.update({key: finest[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by")},
+                  max_abs_err=max(r["flow_gap_px_settled"] for r in levels), library_ms=None,
+                  levels=levels, step_device_ms=sum(r["device_ms"] for r in levels),
+                  step_bound_ms=sum(r["bound_ms"] for r in levels))
+    print(f"[{tag}] the four levels: {record['step_device_ms']:.4f} ms on the device, bound "
+          f"{record['step_bound_ms']:.5f} ms")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+def phase_lk(dev, record: dict) -> None:
+    _lk_parity(dev, "lk", record, 1, 1024)
+
+
+def phase_lkb(dev, record: dict) -> None:
+    _lk_parity(dev, "lkb", record, MULTISEQ_LANES, 1024)
+
+
 def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     """bench_torch.py's headline (bench.py's synthetic half) through its own
     `bench_synthetic_full`: the city written under `city_root` and read back
@@ -750,6 +889,7 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
                           bootstrap_card_vs_cpu=boot_held)))
     records["corner_response_nms"]["launches"] = counts["corner_response_nms"]
     records["extract_patches"]["launches"] = counts["extract_patches"]
+    records["lk_solve"]["launches"] = counts["lk_solve"]
     HANDOFF["ba_window"] = (run.rollouts.state.window, torch.as_tensor(run.seq.K, device=dev))
     HANDOFF["headline_ate"] = ate
     HANDOFF["headline_result"] = res
@@ -773,6 +913,9 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
         fails.append(f"K1 launched {counts['corner_response_nms']} times, want {want_k1}")
     if counts["extract_patches"] != levels * want_k1:
         fails.append(f"K2 launched {counts['extract_patches']} times, want {levels * want_k1}")
+    if counts["lk_solve"] != levels * want_k1:
+        fails.append(f"the LK solve launched {counts['lk_solve']} times, want "
+                     f"{levels * want_k1}")
     if not same:
         d = float((warm.pose - outs.pose).abs().max())
         fails.append(f"the captured rollout differs from the eager warm-up in "
@@ -788,7 +931,8 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
         fails.append(f"the DLT's eigh route against torch.linalg.eigh over the warm-up's "
                      f"first {DLT_HELD_FRAMES} frames: {routes}")
     want_traced = {"corner_nms_kernel": TRACED_FRAMES,
-                   "patch_gather_kernel": levels * TRACED_FRAMES}
+                   "patch_gather_kernel": levels * TRACED_FRAMES,
+                   "lk_solve_kernel": levels * TRACED_FRAMES}
     if (traced["trace"] != want_traced or traced["counted"] != want_traced
             or traced["executor"] != "graphs" or graphed.RUNNERS.captures != captures):
         fails.append(f"{TRACED_FRAMES} traced frames ran {traced['executor']} "
@@ -953,15 +1097,16 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
           f"{steps / dt:.2f} frames/s a lane")
     print(f"[multiseq] launches (bootstraps + rollout): {json.dumps(counts)}; R ran on "
           f"{recoveries} frames of the lanes by the device's count")
-    want = {
+    want = _with_lk({
         "corner_response_nms": b, "extract_patches": levels * b,
         "corner_response_nms_batched": steps,
         "extract_patches_batched": levels * steps,
-    }
+    })
     if counts != want:
         fails.append(f"launches {counts}, want {want}")
     records["corner_response_nms_batched"]["launches"] = counts["corner_response_nms_batched"]
     records["extract_patches_batched"]["launches"] = counts["extract_patches_batched"]
+    records["lk_solve_batched"]["launches"] = counts["lk_solve_batched"]
 
     def judge(name, est, gt, n_ok, n_frozen, n_steps):
         from vo_tpu_torch.data.evaluate import ate_rmse, positions_from_poses, rpe
@@ -1015,10 +1160,10 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
     print(f"[multiseq] distorted lane: {dsteps} steps in {ddt:.2f} s = "
           f"{dsteps / ddt:.2f} frames/s; launches {json.dumps(dcounts)}; R ran on "
           f"{_recoveries() - r_before} frames by the device's count")
-    dwant = {
+    dwant = _with_lk({
         "corner_response_nms": dsteps + 1, "extract_patches": levels * (dsteps + 1),
         "corner_response_nms_batched": 0, "extract_patches_batched": 0,
-    }
+    })
     if dcounts != dwant:
         fails.append(f"distorted lane launches {dcounts}, want {dwant}")
     dgt = dseq.gt_poses[[0, 2] + list(range(3, 3 + dsteps))]
@@ -1187,8 +1332,9 @@ def _kitti_sized_probe(dev, records: dict, fails: list) -> None:
                 recoveries=recoveries)
     print(json.dumps(line))
     levels = VOConfig().klt.pyramid_levels
-    want = {"corner_response_nms": 1 + 2 * steps, "extract_patches": levels * (1 + 2 * steps),
-            "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+    want = _with_lk({"corner_response_nms": 1 + 2 * steps,
+                     "extract_patches": levels * (1 + 2 * steps),
+                     "corner_response_nms_batched": 0, "extract_patches_batched": 0})
     if counts != want:
         fails.append(f"(b) launches {counts}, want {want}")
     if finite != steps or frozen or not bool(torch.isfinite(runs.warm.pose).all()):
@@ -1309,7 +1455,8 @@ def phase_tools(dev, records: dict, city_root: str, repro_frames: int, steps: in
             fails.append(f"(a) headline ATE {res['ate_rmse_m']} m drifts {drift:.2f}% from "
                          f"{exp['ate_rmse_m']} m (tol {exp['tol_pct']}%)")
 
-    # (b) The kernels on and off: each toggle's launches; K2 off changes no bit.
+    # (b) The kernels on and off: each toggle's launches; with the klt
+    # kernels off, the plain route's poses as before the LK solve kernel.
     imgs, K, seq = bench_torch.read_city(city_root, dev, repro_frames)
     n = imgs.shape[0] - 3
     rows = _tools_rows("(b)", repro_headline_torch.repro(imgs, K, seq.gt_poses, dev,
@@ -1318,15 +1465,17 @@ def phase_tools(dev, records: dict, city_root: str, repro_frames: int, steps: in
     print(json.dumps(dict(phase="tools", tool="repro_headline_torch", device=card,
                           frames=n + 3, rows=list(rows.values()))))
     on = n + 1  # the bootstrap's launch and one a step
-    want = {"pallas_auto(default)": (on, 4 * on), "klt_pallas_off": (on, 0),
-            "detect_pallas_off": (0, 4 * on), "all_pallas_off": (0, 0)}
-    for name, (k1, k2) in want.items():
+    want = {"pallas_auto(default)": (on, 4 * on, 4 * on), "klt_pallas_off": (on, 0, 0),
+            "detect_pallas_off": (0, 4 * on, 4 * on), "all_pallas_off": (0, 0, 0)}
+    for name, (k1, k2, lk) in want.items():
         r = rows.get(name, {})
-        if "error" not in r and (r.get("k1"), r.get("k2")) != (k1, k2):
-            fails.append(f"(b) {name}: launches K1 {r.get('k1')} / K2 {r.get('k2')}, want "
-                         f"{k1} / {k2}")
-    if not rows.get("klt_pallas_off", {}).get("bit_equal_to_default"):
-        fails.append("(b) klt_pallas_off's poses differ from the default's")
+        if "error" not in r and (r.get("k1"), r.get("k2"), r.get("lk")) != (k1, k2, lk):
+            fails.append(f"(b) {name}: launches K1 {r.get('k1')} / K2 {r.get('k2')} / LK "
+                         f"solve {r.get('lk')}, want {k1} / {k2} / {lk}")
+    plain = rows.get("klt_pallas_off", {}).get("poses_sha256")
+    if repro_frames == TOOLS_REPRO_FRAMES and plain != REPRO_PLAIN_POSES_SHA256:
+        fails.append(f"(b) klt_pallas_off's poses hash to {plain}, want "
+                     f"{REPRO_PLAIN_POSES_SHA256}: the plain LK route moved")
     _free()
     done("(b)")
 
@@ -1526,8 +1675,8 @@ def phase_data(dev, n_frames: int, records: dict) -> None:
                     **done.result, launches=counts, generate_s=round(t_gen, 2),
                     png_bytes=on_disk, raw_bytes=n_frames * lit.width * lit.height)
         steps = line["steps"]
-        want = {"corner_response_nms": steps + 1, "extract_patches": 4 * (steps + 1),
-                "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+        want = _with_lk({"corner_response_nms": steps + 1, "extract_patches": 4 * (steps + 1),
+                         "corner_response_nms_batched": 0, "extract_patches_batched": 0})
         if counts != want:
             fails.append(f"(c) launches {counts}, want {want}")
         if line["pose_ok"] < steps - POSE_OK_SLACK:
@@ -1572,10 +1721,10 @@ def phase_data(dev, n_frames: int, records: dict) -> None:
                 # and a timed rollout; B = 1 launches the single kernels.
                 n = 2 * DATA_LANE_STEPS
                 single, batched = (n, 0) if b == 1 else (0, n)
-                want = {"corner_response_nms": b + single,
-                        "extract_patches": 4 * (b + single),
-                        "corner_response_nms_batched": batched,
-                        "extract_patches_batched": 4 * batched}
+                want = _with_lk({"corner_response_nms": b + single,
+                                 "extract_patches": 4 * (b + single),
+                                 "corner_response_nms_batched": batched,
+                                 "extract_patches_batched": 4 * batched})
                 print(json.dumps(dict(phase="data", part=f"lanes_{mode}", rc=rc,
                                       seconds=round(dt, 2), launches=counts, want=want)))
                 if rc != 0 or counts != want:
@@ -1732,8 +1881,8 @@ def phase_harris(dev, n_frames: int, records: dict) -> None:
                     **done.result, launches=counts,
                     bootstrap_card_vs_cpu=_bootstraps_held("harris", kept, ["harris"], fails))
         steps = line["steps"]
-        want = {"corner_response_nms": 2 + steps, "extract_patches": 0,
-                "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+        want = _with_lk({"corner_response_nms": 2 + steps, "extract_patches": 0,
+                         "corner_response_nms_batched": 0, "extract_patches_batched": 0})
         if counts != want:
             fails.append(f"launches {counts}, want {want}")
         ate = done.result.get("ate_rmse_m", np.inf)
@@ -2101,8 +2250,9 @@ def phase_loop(dev, n_frames: int, records: dict) -> None:
         if res["executor"] != "graphs":
             fails.append(f"the loop ran {res['executor']}, not the captured graphs")
         steps = line["steps"]
-        want = {"corner_response_nms": 1 + steps, "extract_patches": levels * (1 + steps),
-                "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+        want = _with_lk({"corner_response_nms": 1 + steps,
+                         "extract_patches": levels * (1 + steps),
+                         "corner_response_nms_batched": 0, "extract_patches_batched": 0})
         if counts != want:
             fails.append(f"launches {counts}, want {want}")
         records["corner_response_nms"]["launches_loop"] = counts["corner_response_nms"]
@@ -2336,9 +2486,9 @@ def _dist_cluster(fails: list, records: dict) -> None:
                launches=launches, agg_fps=rep["agg_fps"],
                agg_fps_note="the two ranks share one card: no scaling is measured",
                seconds=round(dt, 3), rank_seconds=rep["seconds"])
-    want = {"corner_response_nms": [0, 0], "extract_patches": [0, 0],
-            "corner_response_nms_batched": [steps, steps],
-            "extract_patches_batched": [4 * steps, 4 * steps]}
+    want = _with_lk({"corner_response_nms": [0, 0], "extract_patches": [0, 0],
+                     "corner_response_nms_batched": [steps, steps],
+                     "extract_patches_batched": [4 * steps, 4 * steps]})
     if launches != want:
         fails.append(f"rollout launches {launches}, want {want}")
     if not (rep["finite"] and rep["gsum_ok"]):
@@ -2366,8 +2516,8 @@ def _dist_seqpar_rollout(fails: list, records: dict) -> None:
         fails.append(f"seqpar rollout: ATE {rep['ate_seqpar_m']} m with the back-end, "
                      f"{rep['ate_no_refine_m']} m without, finite {rep['finite']}")
     steps = rep["frames"] - 3
-    want = {"corner_response_nms": steps + 1, "extract_patches": 4 * (steps + 1),
-            "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+    want = _with_lk({"corner_response_nms": steps + 1, "extract_patches": 4 * (steps + 1),
+                     "corner_response_nms_batched": 0, "extract_patches_batched": 0})
     if rep["launches"] != want:
         fails.append(f"seqpar rollout launches {rep['launches']}, want {want}")
     records["corner_response_nms"]["launches_dist_seqpar"] = rep["launches"]["corner_response_nms"]
@@ -2472,6 +2622,11 @@ def main(argv=None) -> int:
             name="extract_patches_batched", route="cuda",
             source="vo_tpu_torch/csrc/patch_gather.cu",
             replaces="vo_tpu/ops/pallas_kernels.py:464"),
+        # No TPU kernel: the JAX package leaves LK's solve to XLA.
+        "lk_solve": dict(name="lk_solve", route="cuda", source="vo_tpu_torch/csrc/lk_solve.cu",
+                         replaces=None),
+        "lk_solve_batched": dict(name="lk_solve_batched", route="cuda",
+                                 source="vo_tpu_torch/csrc/lk_solve.cu", replaces=None),
     }
     for rec in records.values():
         rec.update(launches=0, max_abs_err=None, ms=None, device_ms=None, plain_ms=None,
@@ -2515,6 +2670,8 @@ def main(argv=None) -> int:
         run("k2", phase_k2, dev, records["extract_patches"])
         run("k1b", phase_k1b, dev, records["corner_response_nms_batched"])
         run("k2b", phase_k2b, dev, records["extract_patches_batched"])
+        run("lk", phase_lk, dev, records["lk_solve"])
+        run("lkb", phase_lkb, dev, records["lk_solve_batched"])
     city = tempfile.mkdtemp(prefix="vo_city_")  # the headline's city, on disk
     try:
         run("headline", phase_headline, dev, args.frames, records, city)

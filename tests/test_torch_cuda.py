@@ -180,9 +180,9 @@ def test_k2b_kernel_matches_plain(cuda_device, size, shape):
 
 @pytest.mark.cuda
 def test_batched_step_launches_the_batched_kernels(cuda_device):
-    """Two lanes through `batched_vo_step` on the card: one corner launch and
+    """Two lanes through `batched_vo_step` on the card: one corner launch,
     one gather launch a pyramid level (the pair: template and search windows
-    together), all of them batched."""
+    together) and one LK solve launch a level, all of them batched."""
     from vo_tpu_torch.models.pipeline import bootstrap
     from vo_tpu_torch.parallel.multiseq import batched_vo_step, stack_states
     from vo_tpu_torch.utils.config import VOConfig
@@ -200,7 +200,8 @@ def test_batched_step_launches_the_batched_kernels(cuda_device):
     assert out.pose.shape == (2, 4, 4) and bool(torch.isfinite(out.pose).all())
     assert kernels.launch_counts == {
         "corner_response_nms": 0, "corner_response_nms_batched": 1,
-        "extract_patches": 0, "extract_patches_batched": cfg.klt.pyramid_levels}
+        "extract_patches": 0, "extract_patches_batched": cfg.klt.pyramid_levels,
+        "lk_solve": 0, "lk_solve_batched": cfg.klt.pyramid_levels}
 
 
 @pytest.mark.cuda

@@ -178,21 +178,28 @@ def test_a_second_rollout_under_the_same_key_captures_nothing(city):
 
 def test_launch_counts_accumulate_per_replay(city, monkeypatch):
     """The wrappers count when Python calls them, which for a graph is at
-    capture. With both wrappers counting as on the card, the captured
-    rollout counts what the eager one does: 1 corner kernel and 4 gather
-    launches a step, nothing for the warm-up or the capture."""
+    capture. With the wrappers counting as on the card, the captured
+    rollout counts what the eager one does: 1 corner kernel, 4 gather
+    launches and 4 LK solve launches a step, nothing for the warm-up or the
+    capture."""
     frames, K = city
     real_pairs, real_k1 = tklt.extract_patch_pairs, kernels.corner_response_nms
+    real_solve = tklt.lk_solve
 
     def pairs(prev, *a, **kw):
         kernels.launch_counts["extract_patches"] += 1
         return real_pairs(prev, *a, **kw)
+
+    def solve(*a, **kw):
+        kernels.launch_counts["lk_solve"] += 1
+        return real_solve(*a, **kw)
 
     def k1(img, *a, **kw):
         kernels.launch_counts["corner_response_nms"] += 1
         return real_k1(img, *a, **kw)
 
     monkeypatch.setattr(tklt, "extract_patch_pairs", pairs)
+    monkeypatch.setattr(tklt, "lk_solve", solve)
     monkeypatch.setattr(kernels, "corner_response_nms", k1)
     steps = 6
     counts = []
@@ -206,10 +213,11 @@ def test_launch_counts_accumulate_per_replay(city, monkeypatch):
             _captured(state, frames[3:3 + steps], K, cache=cache)
         counts.append(dict(kernels.launch_counts))
     want = {"corner_response_nms": steps, "extract_patches": 4 * steps,
-            "corner_response_nms_batched": 0, "extract_patches_batched": 0}
+            "corner_response_nms_batched": 0, "extract_patches_batched": 0,
+            "lk_solve": 4 * steps, "lk_solve_batched": 0}
     assert counts == [want] * 3
     _, runner = _captured(_boot(frames, K, 2023), frames[3:4], K, cache=cache)
-    assert runner.launches == {"extract_patches": 4, "corner_response_nms": 1}
+    assert runner.launches == {"extract_patches": 4, "corner_response_nms": 1, "lk_solve": 4}
 
 
 @pytest.mark.parametrize("shape", [(3, 3), (1, 3, 3), (6, 3, 3), (5, 4, 4)])
@@ -456,6 +464,12 @@ def test_check_recorded_holds_counts_to_the_graph():
     with pytest.raises(RuntimeError, match="holds 1 corner_nms_kernel"):
         graphed.check_recorded("B2", {"extract_patches": 4}, names)
     graphed.check_recorded("D", {}, names[:1])
+    solve = "_ZN12_GLOBAL__N_115lk_solve_kernelENS_7LkLevelE"
+    graphed.check_recorded("A", {"extract_patches": 4, "corner_response_nms": 1,
+                                 "lk_solve": 4}, names + [solve] * 4)
+    with pytest.raises(RuntimeError, match="holds 3 lk_solve_kernel nodes"):
+        graphed.check_recorded("A", {"extract_patches": 4, "corner_response_nms": 1,
+                                     "lk_solve_batched": 4}, names + [solve] * 3)
 
 
 def test_rollouts_report_what_ran(city):

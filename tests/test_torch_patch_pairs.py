@@ -203,3 +203,113 @@ def test_lk_gathers_once_a_level_inside_the_padded_extent(monkeypatch, batched):
     out = tklt.pyramidal_lk(p0, p1, T(xy), init_flow=T(flow))
     assert bool(torch.isfinite(out.xy).all())
     assert calls == [(tuple(p.shape), TSIZE, SSIZE, PAD) for p in reversed(p0)]
+
+
+def _lk_case(rng, batched):
+    """Pyramids of a textured level and its shifted copy, 40 points (the
+    level's corners among them) and flow guesses, one lane or two."""
+    shape = (2, 120, 160) if batched else (120, 160)
+    lead = shape[:-2]
+    base = rng.uniform(0, 255, shape).astype(np.float32)
+    p0 = timg.build_pyramid(timg.gaussian_blur(T(base), 1.5), 3)
+    p1 = timg.build_pyramid(timg.gaussian_blur(T(np.roll(base, (2, -3), axis=(-2, -1))), 1.5), 3)
+    xy = rng.uniform(0, 119, lead + (40, 2)).astype(np.float32)
+    xy[..., :4, :] = [[0, 0], [159, 119], [0, 119], [159, 0]]
+    flow = rng.normal(0, 3, lead + (40, 2)).astype(np.float32)
+    return p0, p1, T(xy), T(flow)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_lk_on_the_cpu_takes_the_plain_path_bit_for_bit(monkeypatch, batched):
+    """On CPU tensors `pyramidal_lk_counted` launches nothing and returns what
+    it returns with `use_pallas=False`, track and count, bit for bit."""
+    p0, p1, xy, flow = _lk_case(np.random.default_rng(10), batched)
+
+    def no_launch(*args):
+        raise AssertionError("a kernel launch on the CPU path")
+
+    monkeypatch.setattr(kernels, "_launch", no_launch)
+    before = dict(kernels.launch_counts)
+    got, got_n = tklt.pyramidal_lk_counted(p0, p1, xy, init_flow=flow)
+    want, want_n = tklt.pyramidal_lk_counted(p0, p1, xy, init_flow=flow, use_pallas=False)
+    assert kernels.launch_counts == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got_n, want_n) and got_n.dtype == torch.int64
+    assert int(got_n.min()) > 0
+
+
+def test_lk_solve_with_the_kernel_asked_for_on_cpu_raises():
+    p0, p1, xy, flow = _lk_case(np.random.default_rng(11), False)
+    k = xy.shape[0]
+    args = (torch.zeros((k, TSIZE, TSIZE)), torch.zeros((k, SSIZE, SSIZE)), xy % 1.0,
+            xy % 1.0 + tklt.MARGIN, flow, RADIUS, 10, 0.03, 1e-4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.lk_solve(*args, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tklt.pyramidal_lk(p0, p1, xy, init_flow=flow, use_pallas=True)
+    flow_out, cond, err = kernels.lk_solve(*args, use_kernel=False)
+    assert flow_out.shape == (k, 2) and cond.dtype == torch.bool and err.shape == (k,)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_lk_launches_one_solve_and_one_pair_a_level(monkeypatch, batched):
+    """With both launches stubbed by plain twins that count as the kernels
+    count (`_batched` over more than one lane), LK makes one pair launch and
+    then one solve launch a pyramid level, coarsest first, and the track is
+    the plain path's."""
+    p0, p1, xy, flow = _lk_case(np.random.default_rng(12), batched)
+    suffix = "_batched" if batched else ""
+    calls = []
+    real_pairs, real_solve = tklt.extract_patch_pairs, tklt.lk_solve
+
+    def pairs(prev, *args, use_kernel=None):
+        calls.append(("pair", tuple(prev.shape[-2:])))
+        kernels.launch_counts["extract_patches" + suffix] += 1
+        return real_pairs(prev, *args, use_kernel=False)
+
+    def solve(*args, use_kernel=None):
+        calls.append(("solve", tuple(args[1].shape)))
+        kernels.launch_counts["lk_solve" + suffix] += 1
+        return real_solve(*args, use_kernel=False)
+
+    monkeypatch.setattr(tklt, "extract_patch_pairs", pairs)
+    monkeypatch.setattr(tklt, "lk_solve", solve)
+    before = dict(kernels.launch_counts)
+    got, got_n = tklt.pyramidal_lk_counted(p0, p1, xy, init_flow=flow)
+    launched = {n: kernels.launch_counts[n] - before[n] for n in before}
+    assert launched == {**{n: 0 for n in before}, "extract_patches" + suffix: 3,
+                        "lk_solve" + suffix: 3}
+    levels = [tuple(p.shape[-2:]) for p in reversed(p0)]
+    spatches = xy.shape[:-1] + (SSIZE, SSIZE)
+    assert calls == [c for hw in levels for c in (("pair", hw), ("solve", spatches))]
+    monkeypatch.undo()
+    want, want_n = tklt.pyramidal_lk_counted(p0, p1, xy, init_flow=flow)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(got_n, want_n)
+
+
+def test_lk_solve_rejects_a_wrong_patch_size_or_lane_count():
+    k = 12
+    t, s = torch.zeros((k, TSIZE, TSIZE)), torch.zeros((k, SSIZE, SSIZE))
+    p = torch.zeros((k, 2))
+    rest = (RADIUS, 10, 0.03, 1e-4)
+    kernels.lk_solve(t, s, p, p, p, *rest)  # the shapes the LK caller makes
+    with pytest.raises(ValueError, match="templates"):  # a template for radius 7
+        kernels.lk_solve(torch.zeros((k, 19, 19)), s, p, p, p, *rest)
+    with pytest.raises(ValueError, match="templates"):  # a search patch too small
+        kernels.lk_solve(t, torch.zeros((k, 18, 18)), p, p, p, *rest)
+    with pytest.raises(ValueError, match="templates"):  # not square
+        kernels.lk_solve(t, torch.zeros((k, 35, 36)), p, p, p, *rest)
+    with pytest.raises(ValueError, match="templates"):  # patches of 3 lanes, points of 2
+        kernels.lk_solve(t.expand(3, k, TSIZE, TSIZE), s.expand(3, k, SSIZE, SSIZE),
+                         p.expand(2, k, 2), p.expand(2, k, 2), p.expand(2, k, 2), *rest)
+    with pytest.raises(ValueError, match="templates"):  # points of another count
+        kernels.lk_solve(t, s, p[:5], p[:5], p[:5], *rest)
+    with pytest.raises(ValueError, match="templates"):  # two lane axes
+        kernels.lk_solve(t[None, None], s[None, None], p[None, None], p[None, None],
+                         p[None, None], *rest)
+    # The plain version takes any float dtype (the benchmark's reference test
+    # feeds it float64); the kernel's dtypes are checked on the card.
+    flow, _, err = kernels.lk_solve(t.double(), s.double(), p.double(), p.double(),
+                                    p.double(), *rest)
+    assert flow.dtype == err.dtype == torch.float64

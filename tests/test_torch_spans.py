@@ -207,20 +207,23 @@ def test_lk_active_never_exceeds_those_run_and_equals_an_eager_recount(rolled):
 
 def test_pyramidal_lk_counted_is_pyramidal_lk(city):
     """The counted track is the plain one bit for bit, and one frame's
-    count is the solver's active masks summed by hand."""
+    count is the levels' per-point counts of active iterations summed by
+    hand."""
     frames, K = city
     p0, p1 = (timg.build_pyramid(frames[i], 3) for i in (3, 4))
     xy = torch.from_numpy(np.random.default_rng(5).uniform(12, 100, (64, 2)).astype(np.float32))
     plain = tklt.pyramidal_lk(p0, p1, xy, radius=8)
     counted, active = tklt.pyramidal_lk_counted(p0, p1, xy, radius=8)
     assert all(torch.equal(a, b) for a, b in zip(plain, counted))
-    masks = []
+    counts = []
     flow = torch.zeros_like(xy)
     for lvl in range(2, -1, -1):
         flow, _, _ = tklt._lk_level(p0[lvl], p1[lvl], xy / 2.0**lvl, flow, 8, 10, 0.03, 1e-4,
-                                    None, masks)
+                                    None, counts)
         flow = flow * 2.0 if lvl else flow
-    assert len(masks) == 30 and int(active) == sum(int(m.sum()) for m in masks)
+    assert len(counts) == 3 and all(c.shape == (64,) and c.dtype == torch.int32
+                                    and 0 <= int(c.min()) <= int(c.max()) <= 10 for c in counts)
+    assert int(active) == sum(int(c.sum()) for c in counts)
     assert 0 < int(active) <= 64 * 30
 
 

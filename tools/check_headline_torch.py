@@ -18,10 +18,13 @@ neither read nor written here.
 Run it before every commit that touches vo_tpu_torch/ops, models, geom or
 utils/config.py. The headline ATE is bit-stable for one card and commit
 (one seeded generator, no clock in the arithmetic), so the 5% tolerance
-absorbs CPU against card numerics only (before the bootstrap ran in
-float64 the CPU gave 1.4914 m against the card's 1.4494 m, 2.9% apart),
-not run-to-run noise. chip_smoke.py applies
-`gate` to its own headline run.
+is not for run-to-run noise. The expected figure holds for the card's
+route only: there LK's solve is the CUDA kernel, on the CPU its plain
+version, and the two part by a few ulps a level, which over 597 steps
+moves the seeded draw (at seed 2023 the card read 0.5671 m with the plain
+solve and 1.359 m with the kernel, on an NVIDIA H100 80GB HBM3 at 700 W).
+A CPU run is not held to the card's figure: read its ATE, not its exit
+code. chip_smoke.py applies `gate` to its own headline run.
 
 Ends in one JSON line with the card's name and power limit.
 """

@@ -3,12 +3,14 @@
 counterpart of the JAX package's tools/check_pallas_tpu.py.
 
 Builds the kernels from vo_tpu_torch/csrc (nvcc, sm_90a) and runs
-chip_smoke.py's four kernel checks and nothing else: `phase_k1` (the corner
+chip_smoke.py's kernel checks and nothing else: `phase_k1` (the corner
 kernel K1 against its plain version at every (mode, patch, r) instance and
 shapes below, across and at a tile), `phase_k2` (the patch gather K2 and the
 pair launch of an LK level, bit-identical), `phase_k1b` and `phase_k2b` (the
-same kernels over 6 lanes). The checks are chip_smoke.py's own functions,
-not copies; chip_smoke.py runs them itself, so it does not run this tool.
+same kernels over 6 lanes), `phase_lk` and `phase_lkb` (the LK solve on each
+level's patches against its plain version, one lane and six, each level
+timed). The checks are chip_smoke.py's own functions, not copies;
+chip_smoke.py runs them itself, so it does not run this tool.
 
 Exit code 0 and "PASS" when every check holds, 1 on a mismatch, 2 when no
 CUDA device is visible (callers treat 2 as skip):
@@ -42,7 +44,8 @@ def main(argv=None) -> int:
     print(f"[build] {_build.build()} in {time.perf_counter() - t0:.1f} s")
     failures = []
     for name, phase in (("k1", chip_smoke.phase_k1), ("k2", chip_smoke.phase_k2),
-                        ("k1b", chip_smoke.phase_k1b), ("k2b", chip_smoke.phase_k2b)):
+                        ("k1b", chip_smoke.phase_k1b), ("k2b", chip_smoke.phase_k2b),
+                        ("lk", chip_smoke.phase_lk), ("lkb", chip_smoke.phase_lkb)):
         try:
             phase(dev, {})
         except AssertionError as exc:  # a mismatch; a build or launch error propagates
@@ -50,7 +53,7 @@ def main(argv=None) -> int:
     if failures:
         print("FAIL:", *failures, sep="\n  ")
     else:
-        print(f"PASS: K1, K2, K1b, K2b match their plain versions on {card}")
+        print(f"PASS: K1, K2, K1b, K2b and the LK solve match their plain versions on {card}")
     print(json.dumps({"tool": "check_kernels_cuda", "device": card, "failures": failures}))
     return 1 if failures else 0
 

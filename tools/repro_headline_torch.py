@@ -15,18 +15,25 @@ a CUDA tensor; False: the plain PyTorch version), as `run_vo_torch.py
     python tools/repro_headline_torch.py [--also-detect] [--frames 600]
     python tools/repro_headline_torch.py --device cpu --frames 12
 
-Each variant prints ATE, RPE, frames/s, its K1/K2 launches and the largest
-pose difference from `pallas_auto(default)` (`bit_equal_to_default`: the
-poses equal the default's bit for bit). K2 equals its plain version bit for
-bit, so `klt_pallas_off` should equal the default exactly; K1 agrees only to
-rtol 1e-5, so with detection off top-K ties may reorder. Ends in one JSON
-line with the card's name and power limit; exits 1 if any variant failed.
+Each variant prints ATE, RPE, frames/s, its K1, K2 and LK solve launches,
+the largest pose difference from `pallas_auto(default)`
+(`bit_equal_to_default`: the poses equal the default's bit for bit) and the
+sha256 of its poses (`poses_sha256`, the first 16 hex digits of the float32
+array of every frame's pose), by which a route is pinned from one commit to
+the next. `use_pallas` on the klt side routes K2, which equals its plain
+version bit for bit, and LK's solve, which agrees with its plain version to
+a few ulps, so `klt_pallas_off` follows the default to rounding and runs
+the plain solve alone (the CPU runs the plain versions in every variant,
+and there every row is bit-equal); K1 agrees only to rtol 1e-5, so with
+detection off top-K ties may reorder. Ends in one JSON line with the card's
+name and power limit; exits 1 if any variant failed.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import sys
 import time
@@ -98,8 +105,10 @@ def repro(imgs, K, gt_poses, dev, also_detect: bool = True) -> list:
             "finite": int(torch.isfinite(outs.pose).all(dim=(1, 2)).sum()),
             "k1": launches["corner_response_nms"],
             "k2": launches["extract_patches"],
+            "lk": launches["lk_solve"],
             "max_pose_diff": float(abs(est - default[0]).max()),
             "bit_equal_to_default": bool((est == default[0]).all()),
+            "poses_sha256": hashlib.sha256(est.tobytes()).hexdigest()[:16],
         }
         print(f"{name}: {res}", flush=True)
         return res

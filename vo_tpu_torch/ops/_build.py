@@ -47,6 +47,11 @@ _SIGNATURES = {
     # (prev, next, tcorners, scorners, tout, sout, B, H, W, K, tsize, ssize,
     #  pad, stream) — both gathers of one LK level in one launch
     "vo_extract_patch_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (tpatch, spatch, tfrac, s_base, guess, flow, cond, err, live, B, K,
+    #  radius, tsize, ssize, max_iters, eps2, min_eig_threshold, pos_hi,
+    #  stream) — one LK level's solve after its patch pair
+    "vo_lk_solve": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    ctypes.c_float, ctypes.c_float, ctypes.c_float, _P),
     # (stream) — an empty kernel, the launch-latency floor
     "vo_empty_launch": (_P,),
     # (capturing stream, device bool, branch graph, IF node out, body graph

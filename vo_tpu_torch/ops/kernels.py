@@ -4,11 +4,14 @@ Four TPU kernels exist (vo_tpu/ops/pallas_kernels.py): two on the
 single-sequence path and their (B, ...) grid twins for the multi-sequence
 mode. Two CUDA C++ kernels for Hopper (sm_90a) in vo_tpu_torch/csrc/, built
 by ops/_build.py and launched through ctypes on PyTorch's current stream,
-compute all four:
+compute all four; a third computes what the JAX package leaves to XLA after
+the gathers:
 
   K1 / K1b corner_response_nms — csrc/corner_nms.cu   (detection, once per step)
   K2 / K2b extract_patches     — csrc/patch_gather.cu (LK patch gathers, one
            extract_patch_pairs   launch per pyramid level, 4 per step)
+  lk_solve                     — csrc/lk_solve.cu     (LK's solve on the pair's
+                                 patches, one launch per pyramid level)
 
 Each kernel takes a leading batch dimension (the lane is a grid dimension),
 so B lanes are ONE launch, not B. The gather kernel also takes two jobs, so
@@ -57,6 +60,8 @@ launch_counts = {
     "corner_response_nms_batched": 0,
     "extract_patches": 0,
     "extract_patches_batched": 0,
+    "lk_solve": 0,
+    "lk_solve_batched": 0,
 }
 
 # The __global__ function (csrc/) that each counter's launches run: its name
@@ -66,6 +71,8 @@ SYMBOLS = {
     "corner_response_nms_batched": "corner_nms_kernel",
     "extract_patches": "patch_gather_kernel",
     "extract_patches_batched": "patch_gather_kernel",
+    "lk_solve": "lk_solve_kernel",
+    "lk_solve_batched": "lk_solve_kernel",
 }
 
 _MODES = {"shi_tomasi": 0, "harris": 1}
@@ -385,3 +392,93 @@ def extract_patch_pairs(
             tout.data_ptr(), sout.data_ptr(), b, h, w, k, tsize, ssize, pad)
     launch_counts["extract_patches_batched" if b > 1 else "extract_patches"] += 1
     return tout, sout
+
+
+# ---------------------------------------------------------------------------
+# LK's solve on the pair's patches — one launch per pyramid level
+# ---------------------------------------------------------------------------
+
+def lk_solve(
+    tpatch: torch.Tensor,
+    spatch: torch.Tensor,
+    tfrac: torch.Tensor,
+    s_base: torch.Tensor,
+    guess: torch.Tensor,
+    radius: int,
+    max_iters: int,
+    eps: float,
+    min_eig_threshold: float,
+    actives: list | None = None,
+    use_kernel: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Lucas-Kanade level after its patch pair: (K, 2) points, or (B, K,
+    2) over lanes, with the (..., K, 2r+5, 2r+5) templates and (..., K, S, S)
+    search patches that `extract_patch_pairs` gathered around them. `tfrac`
+    is each template centre's sub-pixel offset from its patch's grid, `s_base`
+    the search window's origin inside its patch before any update, as
+    `ops/klt.py::_lk_level` computes them beside the pair's corners. Returns
+    (guess + d (..., K, 2), conditioned (..., K) bool, err (..., K)); where a
+    list `actives` is given, appends to it the (..., K) int32 count, per
+    point, of the iterations that moved it.
+
+    The plain version is `ops/klt.py::lk_solve_plain` (the reference's
+    arithmetic: dense tent-matrix resamples, a fixed trip count with a masked
+    update). On the card it is ONE launch of csrc/lk_solve.cu for all points
+    of all lanes: a warp a point, each point stopping when it converges. The
+    two agree to a few ulps (sums over a window in another order), not bit
+    for bit.
+
+    The shapes are checked on both routes; the kernel also wants float32
+    (the plain version takes any float dtype).
+    """
+    win = 2 * radius + 1
+    lead, k = guess.shape[:-2], guess.shape[-2]
+    ssize = spatch.shape[-1]
+    pts = lead + (k, 2)
+    if not (len(lead) <= 1 and guess.shape == pts and tfrac.shape == pts
+            and s_base.shape == pts and tpatch.shape == lead + (k, win + 4, win + 4)
+            and spatch.shape == lead + (k, ssize, ssize) and ssize >= win + 2):
+        raise ValueError(
+            f"lk_solve wants (K, 2) or (B, K, 2) offsets, origins and guesses, templates "
+            f"(..., K, {win + 4}, {win + 4}) and square search patches of at least "
+            f"{win + 2} for radius {radius}; got offsets {tuple(tfrac.shape)}, origins "
+            f"{tuple(s_base.shape)}, guesses {tuple(guess.shape)}, templates "
+            f"{tuple(tpatch.shape)}, search patches {tuple(spatch.shape)}")
+    if not _wants_kernel(spatch, use_kernel):
+        # ops/klt.py imports this module: the plain version is found at call time.
+        from vo_tpu_torch.ops.klt import lk_solve_plain
+
+        return lk_solve_plain(tpatch, spatch, tfrac, s_base, guess, radius, max_iters, eps,
+                              min_eig_threshold, actives)
+    f32 = torch.float32
+    if not all(t.dtype == f32 for t in (tpatch, spatch, tfrac, s_base, guess)):
+        raise TypeError(f"lk_solve's kernel wants float32 patches, offsets, origins and "
+                        f"guesses; got {tpatch.dtype}, {spatch.dtype}, {tfrac.dtype}, "
+                        f"{s_base.dtype}, {guess.dtype}")
+    # The step's motion prediction hands the first level a guess laid out as
+    # its (..., 2, K) products were: the kernel reads (..., K, 2) rows.
+    tfrac, s_base, guess = tfrac.contiguous(), s_base.contiguous(), guess.contiguous()
+    dev = spatch.device
+    if not all(t.device == dev and t.is_contiguous()
+               for t in (tpatch, spatch, tfrac, s_base, guess)):
+        raise ValueError("patches, offsets, origins and guesses must be contiguous and on "
+                         "one CUDA device")
+    flow = torch.empty(pts, dtype=f32, device=dev)
+    conditioned = torch.empty(lead + (k,), dtype=torch.bool, device=dev)
+    err = torch.empty(lead + (k,), dtype=f32, device=dev)
+    live = None if actives is None else torch.empty(lead + (k,), dtype=torch.int32,
+                                                     device=dev)
+    b = lead[0] if lead else 1
+    from vo_tpu_torch.ops._build import library
+
+    # The plain version compares and clamps with these Python numbers cast to
+    # float32; ctypes rounds them the same way.
+    _launch(dev, "lk_solve", library().vo_lk_solve,
+            tpatch.data_ptr(), spatch.data_ptr(), tfrac.data_ptr(), s_base.data_ptr(),
+            guess.data_ptr(), flow.data_ptr(), conditioned.data_ptr(), err.data_ptr(),
+            None if live is None else live.data_ptr(), b, k, radius, win + 4, ssize,
+            max_iters, eps * eps, min_eig_threshold, float(ssize - win - 1) - 1e-4)
+    launch_counts["lk_solve_batched" if b > 1 else "lk_solve"] += 1
+    if actives is not None:
+        actives.append(live)
+    return flow, conditioned, err

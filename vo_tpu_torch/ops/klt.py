@@ -5,21 +5,28 @@ Each keypoint performs ONE contiguous patch load per pyramid level and image;
 on the card both loads of a level, for all keypoints of all lanes, are ONE
 launch of the K2 patch-gather kernel (ops/kernels.py `extract_patch_pairs`),
 which reads the levels as they are: the reference's edge-replicated copies of
-each level exist only in the plain version. Every bilinear window resample
-after that — template setup and all solver iterations — is
-two small batched matmuls with tent-function selection matrices:
+each level exist only in the plain version. What follows the gathers — the
+template resample and gradients, G, the iterations and the error — is on the
+card ONE launch of csrc/lk_solve.cu a level (`kernels.lk_solve`), a warp a
+point. Its plain version, `lk_solve_plain` (the CPU path, `use_pallas=False`
+and the kernel's oracle), does every bilinear window resample as two small
+batched matmuls with tent-function selection matrices:
 
     window = W_y(p) @ patch @ W_x(p)^T,   W[i, j] = max(0, 1 - |j - (p+i)|)
 
-The reference's `lax.while_loop` early exit becomes a fixed `max_iters`
-loop: converged keypoints add a delta of exactly 0, so the two agree bit for
-bit, and the fixed trip count needs no host sync. The reference's TPU-only
-48/256 over-pad of the levels (aligned DMA regions) is not carried over.
+and turns the reference's `lax.while_loop` early exit into a fixed
+`max_iters` loop: converged keypoints add a delta of exactly 0, so the two
+agree bit for bit, and the fixed trip count needs no host sync. The kernel
+samples the two non-zero taps of each tent and lets a point stop when it
+converges, which gives the same iterations; its sums over a window run in
+another order, so it agrees with the plain version to a few ulps. The
+reference's TPU-only 48/256 over-pad of the levels (aligned DMA regions) is
+not carried over.
 
 Every function takes (K, 2) points with (H, W) levels or, with a leading
 lane axis, (B, K, 2) points with (B, H, W) levels; lane b of the batched
-call is the unbatched call on lane b, and the patch gathers of a level of a
-batch are ONE launch of the kernel (K2b).
+call is the unbatched call on lane b, and the patch gathers and the solve of
+a level of a batch are ONE launch each (K2b, lk_solve_batched).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from vo_tpu_torch.geom.points import device_vector
-from vo_tpu_torch.ops.kernels import extract_patch_pairs
+from vo_tpu_torch.ops.kernels import extract_patch_pairs, lk_solve
 
 # Max |d| within one level before window samples clamp at the patch border.
 MARGIN = 8
@@ -78,9 +85,8 @@ def _lk_level(
 ):
     """One pyramid level of Bouguet LK for all keypoints. Returns
     (flow (..., K, 2), conditioned (..., K) bool, err (..., K)). Where a
-    list `actives` is given, each iteration appends to it the (..., K) mask
-    of the points it moves (nothing is computed for that: the masks are the
-    loop's own)."""
+    list `actives` is given, the solve appends to it each point's count of
+    the iterations that moved it (`kernels.lk_solve`)."""
     h, w = prev_img.shape[-2:]
     win = 2 * radius + 1
     # Corners are in the coordinates of the level edge-replicated by `pad`,
@@ -101,9 +107,35 @@ def _lk_level(
     scorner = torch.floor(center0).to(torch.int32) - radius - MARGIN + pad
     tpatch, spatch = extract_patch_pairs(
         prev_img, next_img, tcorner, scorner, tp_size, sp_size, pad, use_kernel=use_pallas)
+    # What the solve needs of the corners: the template's sub-pixel offset
+    # and the search window's origin inside its patch before any update.
+    tfrac = pt_c - base
+    s_base = (center0 - radius) + pad - scorner.to(torch.float32)
+    return lk_solve(tpatch, spatch, tfrac, s_base, guess, radius, max_iters, eps,
+                    min_eig_threshold, actives, use_kernel=use_pallas)
+
+
+def lk_solve_plain(
+    tpatch: torch.Tensor,  # (..., K, win+4, win+4) templates around pt_prev
+    spatch: torch.Tensor,  # (..., K, S, S) search patches around pt_prev + guess
+    tfrac: torch.Tensor,  # (..., K, 2) the template centres' sub-pixel offsets
+    s_base: torch.Tensor,  # (..., K, 2) the search windows' origins in their patches
+    guess: torch.Tensor,  # (..., K, 2) flow guess at this level
+    radius: int,
+    max_iters: int,
+    eps: float,
+    min_eig_threshold: float,
+    actives: list | None = None,
+):
+    """The solve of one level from its patch pair, in plain PyTorch: the CPU
+    path and the oracle of csrc/lk_solve.cu (`kernels.lk_solve`). Returns
+    (guess + d, conditioned, err); where a list `actives` is given, appends
+    to it the (..., K) int32 count, per point, of the iterations that moved
+    it (its `active` masks summed)."""
+    win = 2 * radius + 1
+    sp_size = spatch.shape[-1]
 
     # ---- Template + gradients: one (win+2) resample ------------------------
-    tfrac = pt_c - base
     T_ext = _resample(tpatch, tfrac + 1.0, win + 2)  # (..., K, win+2, win+2)
     T = T_ext[..., 1:-1, 1:-1]
     Ix = 0.5 * (T_ext[..., 1:-1, 2:] - T_ext[..., 1:-1, :-2])
@@ -121,17 +153,16 @@ def _lk_level(
     inv_det = torch.where(det.abs() > 1e-8, 1.0 / det, 0.0)
 
     # ---- Search window positions inside the search patch ------------------
-    s_base = (center0 - radius) + pad - scorner.to(torch.float32)  # (..., K, 2)
     pos_hi = float(sp_size - win - 1) - 1e-4
 
     def sample_next(pos):  # pos (..., K, 2) -> (..., K, win, win)
         return _resample(spatch, torch.clamp(pos, 0.0, pos_hi), win)
 
-    d = torch.zeros_like(pt_prev)
+    d = torch.zeros_like(tfrac)
     active = conditioned
+    masks = []
     for _ in range(max_iters):
-        if actives is not None:
-            actives.append(active)
+        masks.append(active)
         diff = T - sample_next(s_base + d)
         bx = (diff * Ix).sum(dim=(-2, -1))
         by = (diff * Iy).sum(dim=(-2, -1))
@@ -143,6 +174,8 @@ def _lk_level(
         active = active & ((delta * delta).sum(dim=-1) > eps * eps)
 
     err = torch.abs(sample_next(s_base + d) - T).mean(dim=(-2, -1))
+    if actives is not None:
+        actives.append(torch.stack(masks).sum(0, dtype=torch.int32))
     return guess + d, conditioned, err
 
 
@@ -162,7 +195,8 @@ def pyramidal_lk(
     pyramid (level 0 = full res), or (B, K, 2) keypoints across (B, H, W)
     levels. `init_flow`, shaped as xy, seeds the level-0 flow
     (motion-model prediction); non-finite or absurd guesses fall back to 0.
-    `use_pallas` routes the patch gathers: None = by device, False = plain."""
+    `use_pallas` routes the patch gathers and the solve: None = by device,
+    False = plain."""
     return pyramidal_lk_counted(prev_pyr, next_pyr, xy, radius, max_iters, eps, max_err,
                                 min_eig_threshold, use_pallas, init_flow, count=False)[0]
 
@@ -182,9 +216,9 @@ def pyramidal_lk_counted(
 ) -> tuple[TrackResult, torch.Tensor | None]:
     """`pyramidal_lk` and, with `count`, the point-iterations still active,
     whose update the solver applies (its `active` mask, summed over
-    iterations, levels and points; per lane with a lane axis), else None. The masks are summed
-    once, after every level's loop; the track itself is `pyramidal_lk`'s bit
-    for bit."""
+    iterations, levels and points; per lane with a lane axis), else None. The
+    levels' solves each append a count a point, summed once after every
+    level; the track itself is `pyramidal_lk`'s bit for bit."""
     levels = len(prev_pyr)
     if init_flow is None:
         flow = torch.zeros_like(xy)

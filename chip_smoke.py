@@ -33,6 +33,15 @@ Phases:
      tracked points, live iterations within 0.5%; each of the four 480x640
      levels timed beside its bound (the patches read once, the outputs
      written once);
+  6c. `ba`: BA's camera-system solve kernel (csrc/ba_solve.cu) against the
+     blocked Cholesky it replaces on the card (ops/linalg.py
+     `spd_solve_blocked`) and a float64 dense solve, on the systems BA's
+     step makes on the demo window (W = 6, 1,024 landmarks, six seeds):
+     its error against float64 at most twice the blocked solve's plus
+     1e-6, a lane of six bit-equal to its single run; timed at W = 6 for
+     one lane and six beside its bound, the blocked solve's time and
+     torch.linalg.cholesky_ex + cholesky_solve on the dense system (a
+     yardstick, never on the path);
   7. `headline`: bench_torch.py's headline through its own
      `bench_synthetic_full`: the synthetic city written to disk by
      `generate` and read back through `Sequence("synthetic")`, two frames
@@ -55,7 +64,8 @@ Phases:
      the run's own solve bit for bit; prints both frames/s, the capture's seconds,
      the graphs and their nodes, the syncs a step that torch's sync
      detector reported and the frames on which R and C ran, as the device
-     counted them;
+     counted them, and gates BA's solve launches, counted by the kernel on
+     the device, at `ba.iters` for every frame on which C ran;
   7b. `bench`: the measurement entry points. (a) K1 and the K2 pair at KITTI
      05's frame size (370x1226) and its pyramid levels against their plain
      versions, timed; (b) bench_torch's `bench_kitti_probe` over the first 6
@@ -63,7 +73,9 @@ Phases:
      40 ping-ponged steps, an eager warm-up and a captured timed rollout:
      launch counts, finite, 0 frozen, the two bit-equal); (c) tools/roofline_torch.py and tools/profile_all_torch.py over
      the 640x480 city (host against device time, part by part); (d)
-     tools/bench_solvers_torch.py (the solver pairs agree within 1e-4) and
+     tools/bench_solvers_torch.py (the blocked Cholesky and BA's solve
+     kernel each agree with LU within 1e-4 on the step's poses and
+     landmarks, PnP's solves likewise) and
      tools/bench_pg_torch.py (the error falls; one rank equals pg_optimize);
   7c. `tools`: the remaining tool twins over the headline's city. (a)
      tools/check_headline_torch.py's drift gate applied to the headline
@@ -71,7 +83,9 @@ Phases:
      a rehearsal with fewer frames reports and does not gate); (b)
      repro_headline_torch over the first 24 frames (`--repro-frames`) with
      the kernels on, K2 off, K1 off and both off: each toggle's K1, K2 and
-     LK solve launches, and with the klt kernels off (K2 and the LK solve)
+     LK solve launches, BA's solve launches as the device counted them
+     (`ba.iters` for each frame on which the toggle's rollout ran C, as the
+     device counted those), and with the klt kernels off (K2 and the LK solve)
      the poses of the plain solve bit for bit (REPRO_PLAIN_POSES_SHA256,
      gated at 24 frames only); (c) probe_ablate_torch's six
      variants at 1226x370, 4 steps (`--tools-steps`): finite, 0 frozen, bench
@@ -320,11 +334,15 @@ TOOLS_KEYFRAMES_FIRST, TOOLS_KEYFRAMES_FRAMES = 64, 24
 TOOLS_DEBUG_FIRST, TOOLS_DEBUG_LAST = 6, 10
 # The repro's `klt_pallas_off` runs K2's and LK's plain versions. Before the
 # LK solve kernel the default ran K2's kernel (bit-equal to its plain
-# version) and the plain solve, so `klt_pallas_off` must give that default's
-# poses bit for bit: their `poses_sha256` over the first TOOLS_REPRO_FRAMES
-# frames of the headline's city, taken from the default of the commit before
-# the kernel on an NVIDIA H100 80GB HBM3 (700 W), in two processes.
-REPRO_PLAIN_POSES_SHA256 = "b33282b8fbb24bc3"
+# version) and the plain solve, so `klt_pallas_off` gave that default's
+# poses bit for bit (b33282b8fbb24bc3). BA's solve kernel (csrc/ba_solve.cu)
+# rounds BA's camera system otherwise and moves them; with BA's step handed
+# the blocked Cholesky instead, this commit's `klt_pallas_off` and default
+# still give the earlier hashes bit for bit, so nothing else moved. The
+# value is `klt_pallas_off`'s `poses_sha256` over the first
+# TOOLS_REPRO_FRAMES frames of the headline's city with BA's kernel, taken
+# on an NVIDIA H100 80GB HBM3 (700 W).
+REPRO_PLAIN_POSES_SHA256 = "47e7d5b9551ed201"
 # Inputs one phase leaves for a later one (the headline's BA window and ATE,
 # the loop's pose graph).
 HANDOFF: dict = {}
@@ -794,6 +812,99 @@ def phase_lkb(dev, record: dict) -> None:
     _lk_parity(dev, "lkb", record, MULTISEQ_LANES, 1024)
 
 
+BA_WINDOW, BA_LANDMARKS = 6, 1024  # the demo window of the `ba` phase
+BA_SEEDS = (3, 4, 5, 6, 7, 8)  # one system a seed, a lane each in the batch
+
+
+def _ba_systems(dev) -> list:
+    """The camera system (S, b) of BA's step on the demo window at each of
+    BA_SEEDS, caught through `_gn_step`'s solve argument (one lane each)."""
+    import torch
+    from vo_tpu_torch.models import ba
+    from vo_tpu_torch.ops.linalg import spd_solve_blocked
+    from vo_tpu_torch.parallel.dist_ba import demo_window
+
+    K = torch.tensor([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], device=dev)[None]
+    caught = []
+
+    def keep(S, b):
+        caught.append((S, b))
+        return spd_solve_blocked(S, b)
+
+    for seed in BA_SEEDS:
+        win = demo_window(BA_LANDMARKS, num_keyframes=BA_WINDOW, seed=seed, device=dev)
+        ba._gn_step(ba.BAWindow(*(f[None] for f in win)), K, 1e-3, 2.0, solve=keep)
+    return caught
+
+
+def _ba_bound(record: dict, lanes: int, n: int) -> None:
+    """The solve reads each lane's lower triangle and right-hand side once
+    and writes x once; its operations are the factor's n^3 / 3 multiply-
+    subtracts and the substitutions' n^2, two operations each. What holds
+    it is the n pivots' chain, which neither counts."""
+    _bound(record, lanes * (n * (n + 1) // 2 + 2 * n) * 4,
+           lanes * 2 * (n ** 3 / 3 + n * n))
+
+
+def phase_ba(dev, records: dict) -> None:
+    import torch
+    from vo_tpu_torch.ops import kernels
+    from vo_tpu_torch.ops.linalg import spd_solve_blocked
+
+    systems = _ba_systems(dev)
+    S = torch.cat([s for s, _ in systems])
+    b = torch.cat([r for _, r in systems])
+    n = BA_WINDOW * 6
+    fails = []
+
+    def f64_error(x, S, b):
+        lanes = S.shape[0]
+        dense = S.double().transpose(-3, -2).reshape(lanes, n, n)
+        want = torch.linalg.solve(dense, b.double().reshape(lanes, n, 1)).reshape(b.shape)
+        return float((x.double() - want).abs().max())
+
+    x = kernels.ba_solve(S, b)
+    plain = spd_solve_blocked(S, b)
+    err, plain_err = f64_error(x, S, b), f64_error(plain, S, b)
+    lanes_equal = all(torch.equal(kernels.ba_solve(s1, b1)[0], x[i])
+                      for i, (s1, b1) in enumerate(systems))
+    print(f"[ba] {len(systems)} systems of BA's step at W = {BA_WINDOW}: the kernel's largest "
+          f"error against float64 {err:.3g}, the blocked Cholesky's {plain_err:.3g}; a lane "
+          f"of six bit-equal to its single run: {lanes_equal}")
+    if not (np.isfinite(err) and err <= 2 * plain_err + 1e-6):
+        fails.append(f"the kernel's error {err:.3g} against float64, want <= 2 x the blocked "
+                     f"solve's {plain_err:.3g} + 1e-6")
+    if not lanes_equal:
+        fails.append("a lane of six differs from its single run")
+    for name, lanes in (("ba_solve", 1), ("ba_solve_batched", len(systems))):
+        Sl, bl = S[:lanes], b[:lanes]
+        dense = Sl.transpose(-3, -2).reshape(lanes, n, n)
+        bv = bl.reshape(lanes, n, 1)
+
+        def library(dense=dense, bv=bv):
+            L, _ = torch.linalg.cholesky_ex(dense)
+            return torch.cholesky_solve(bv, L)
+
+        def kernel(Sl=Sl, bl=bl):
+            return kernels.ba_solve(Sl, bl)
+
+        def blocked(Sl=Sl, bl=bl):
+            return spd_solve_blocked(Sl, bl)
+
+        rec = records.setdefault(name, {})
+        rec["ms"], rec["plain_ms"] = _interleaved(blocked, kernel)
+        rec.update(device_ms=_device_ms(kernel), plain_device_ms=_device_ms(blocked, reps=2),
+                   library_ms=_time_ms(library), max_abs_err=err, lanes=lanes,
+                   window=BA_WINDOW)
+        _ba_bound(rec, lanes, n)
+        print(f"[ba] {name}: {lanes} lane(s) at W = {BA_WINDOW}: {rec['ms']:.4f} ms, on the "
+              f"device {rec['device_ms']:.4f} ms; blocked Cholesky {rec['plain_ms']:.4f} ms, "
+              f"on the device {rec['plain_device_ms']:.4f} ms; cholesky_ex + cholesky_solve "
+              f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
 def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     """bench_torch.py's headline (bench.py's synthetic half) through its own
     `bench_synthetic_full`: the city written under `city_root` and read back
@@ -834,8 +945,8 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     captures = graphed.RUNNERS.captures
     traced = _traced_kernels(lambda: vo_rollout(
         run.rollouts.state, back, torch.as_tensor(run.seq.K, device=dev), cfg))
-    print(f"[headline] {TRACED_FRAMES} traced replays: kernels in the trace "
-          f"{traced['trace']}, launches counted {traced['counted']}")
+    print(f"[headline] {TRACED_FRAMES} traced replays, C on {traced['c_runs']}: kernels in "
+          f"the trace {traced['trace']}, launches counted {traced['counted']}")
 
     poses = bench_torch.step_poses(run.boot_pose, outs)
     pose_ok = int(outs.pose_ok.sum())
@@ -856,13 +967,15 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
         graphs = dict(graphs=st.graphs, conditional_nodes=st.conditionals,
                       capture_s=round(st.capture_s, 3),
                       syncs_per_step=st.syncs / max(st.frames, 1),
-                      recoveries=st.recoveries, keyframes=st.keyframes, frames=st.frames)
+                      recoveries=st.recoveries, keyframes=st.keyframes, frames=st.frames,
+                      device_launches=st.device_launches())
         print(f"[headline] one graph a frame: {st.graphs['frame']} nodes, "
               f"{st.conditionals} IF nodes (R's body {st.graphs.get('R')} nodes, C's "
               f"{st.graphs.get('C')}); captured in {st.capture_s:.2f} s; syncs a step "
               f"torch's detector reported {graphs['syncs_per_step']:.2f}; on the device's "
               f"count R ran on "
-              f"{st.recoveries} of {st.frames} frames, C on {st.keyframes}")
+              f"{st.recoveries} of {st.frames} frames, C on {st.keyframes}; BA's solve "
+              f"launched {graphs['device_launches']['ba_solve']} times on the device's count")
     routes = dict(library=cusolver._lib()._name, frames=len(dlt),
                   shape=dlt[0]["shape"] if dlt else None,
                   finite=[c["finite"] for c in dlt], equal=all(c["equal"] for c in dlt),
@@ -890,6 +1003,8 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
     records["corner_response_nms"]["launches"] = counts["corner_response_nms"]
     records["extract_patches"]["launches"] = counts["extract_patches"]
     records["lk_solve"]["launches"] = counts["lk_solve"]
+    if graphs is not None:
+        records["ba_solve"]["launches"] = graphs["device_launches"]["ba_solve"]
     HANDOFF["ba_window"] = (run.rollouts.state.window, torch.as_tensor(run.seq.K, device=dev))
     HANDOFF["headline_ate"] = ate
     HANDOFF["headline_result"] = res
@@ -926,13 +1041,18 @@ def phase_headline(dev, n_frames: int, records: dict, city_root: str) -> None:
             or graphs["syncs_per_step"] != 0:
         fails.append(f"want one graph a frame holding two IF nodes (R, C) and no host sync, "
                      f"got {graphs}")
+    elif graphs["device_launches"]["ba_solve"] != cfg.ba.iters * graphs["keyframes"]:
+        fails.append(f"BA's solve launched {graphs['device_launches']['ba_solve']} times on "
+                     f"the device's count, want {cfg.ba.iters} for each of the "
+                     f"{graphs['keyframes']} frames on which C ran")
     if (routes["frames"] != DLT_HELD_FRAMES or not routes["equal"]
             or min(routes["finite"], default=0) == 0):
         fails.append(f"the DLT's eigh route against torch.linalg.eigh over the warm-up's "
                      f"first {DLT_HELD_FRAMES} frames: {routes}")
     want_traced = {"corner_nms_kernel": TRACED_FRAMES,
                    "patch_gather_kernel": levels * TRACED_FRAMES,
-                   "lk_solve_kernel": levels * TRACED_FRAMES}
+                   "lk_solve_kernel": levels * TRACED_FRAMES,
+                   "ba_solve_kernel": cfg.ba.iters * traced["c_runs"]}
     if (traced["trace"] != want_traced or traced["counted"] != want_traced
             or traced["executor"] != "graphs" or graphed.RUNNERS.captures != captures):
         fails.append(f"{TRACED_FRAMES} traced frames ran {traced['executor']} "
@@ -1031,27 +1151,40 @@ def _routes_held_to_torch_linalg(per_shape: int):
 def _traced_kernels(fn) -> dict:
     """One call of fn (rollouts) under torch.profiler, device activity only:
     the kernels of ops/kernels.py in the trace ("trace") and the launches
-    their wrappers counted ("counted"), both by the kernel's symbol, and
-    what the rollouts ran ("executor")."""
+    counted ("counted"), both by the kernel's symbol: the wrappers' host
+    counts, and for the kernels counted on the device (BA's solve) their
+    eager calls and the runners' replays by the device's count. Also what
+    the rollouts ran ("executor") and the frames on which the runners ran
+    C ("c_runs", the device's count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from vo_tpu_torch.models import graphed
     from vo_tpu_torch.models.pipeline import ROLLED, executor_since
     from vo_tpu_torch.ops import kernels
 
-    symbols = sorted(set(kernels.SYMBOLS.values()))
+    symbols = {**kernels.SYMBOLS, **kernels.DEVICE_COUNTED}
     rolled = dict(ROLLED)
+
+    def device_counted():
+        replayed = graphed.device_launches()
+        c_runs = sum(r.stats.keyframes for r in graphed.RUNNERS.runners())
+        return c_runs, {n: kernels.device_calls[n] + replayed[n] for n in kernels.DEVICE_COUNTED}
+
     kernels.reset_launch_counts()
+    c_before, before = device_counted()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    c_after, after = device_counted()
+    counts = {**kernels.launch_counts, **{n: after[n] - before[n] for n in after}}
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = sorted(set(symbols.values()))
     return dict(
-        trace={s: sum(e.count for e in events if s in e.key) for s in symbols},
-        counted={s: sum(n for c, n in kernels.launch_counts.items()
-                        if kernels.SYMBOLS[c] == s) for s in symbols},
-        executor=executor_since(rolled))
+        trace={s: sum(e.count for e in events if s in e.key) for s in names},
+        counted={s: sum(n for c, n in counts.items() if symbols[c] == s) for s in names},
+        executor=executor_since(rolled), c_runs=c_after - c_before)
 
 
 def phase_multiseq(dev, n_frames: int, records: dict) -> None:
@@ -1083,11 +1216,12 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
 
     # The six lanes: bootstrapped alone, stacked, rolled in lockstep.
     kernels.reset_launch_counts()
-    r_before = _recoveries()
+    r_before, ba_before = _recoveries(), _ba_on_device()
     with _bootstrap_inputs_kept(b) as kept:
         boot, outs, dt = runner.run_lockstep(seqs, cfg, adaptive=synthetic.ADAPTIVE_LANES)
     counts = dict(kernels.launch_counts)
     recoveries = _recoveries() - r_before
+    ba_launches, c_runs = (x - y for x, y in zip(_ba_on_device(), ba_before))
     poses = outs.pose.cpu().numpy()  # (N, B, 4, 4)
     steps = poses.shape[0]
     pose_ok = outs.pose_ok.sum(dim=0).tolist()
@@ -1096,7 +1230,8 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
           f"{1e3 * dt / steps:.1f} ms a step, {b * steps / dt:.2f} frames/s aggregate, "
           f"{steps / dt:.2f} frames/s a lane")
     print(f"[multiseq] launches (bootstraps + rollout): {json.dumps(counts)}; R ran on "
-          f"{recoveries} frames of the lanes by the device's count")
+          f"{recoveries} frames of the lanes by the device's count, C on {c_runs} steps, "
+          f"BA's solve launched {ba_launches} times on the device's count")
     want = _with_lk({
         "corner_response_nms": b, "extract_patches": levels * b,
         "corner_response_nms_batched": steps,
@@ -1104,6 +1239,10 @@ def phase_multiseq(dev, n_frames: int, records: dict) -> None:
     })
     if counts != want:
         fails.append(f"launches {counts}, want {want}")
+    if c_runs == 0 or ba_launches != cfg.ba.iters * c_runs:
+        fails.append(f"BA's solve launched {ba_launches} times on the device's count, want "
+                     f"{cfg.ba.iters} for each of the {c_runs} steps on which C ran (> 0)")
+    records["ba_solve_batched"]["launches"] = ba_launches
     records["corner_response_nms_batched"]["launches"] = counts["corner_response_nms_batched"]
     records["extract_patches_batched"]["launches"] = counts["extract_patches_batched"]
     records["lk_solve_batched"]["launches"] = counts["lk_solve_batched"]
@@ -1385,7 +1524,8 @@ def phase_bench(dev, records: dict, city_root: str) -> None:
     # (d) The solver pairs and the pose graph.
     solvers = bench_solvers_torch.bench(dev)
     print(json.dumps(dict(phase="bench", part="solvers", device=card, **solvers)))
-    for key in ("ba_pose_rel_diff", "ba_landmark_rel_diff", "pnp_solve_rel_diff"):
+    for key in ("ba_pose_rel_diff", "ba_landmark_rel_diff", "ba_kernel_pose_rel_diff",
+                "ba_kernel_landmark_rel_diff", "pnp_solve_rel_diff"):
         if not solvers[key] < SOLVER_REL_TOL:
             fails.append(f"(d) {key} {solvers[key]:.3g}, want < {SOLVER_REL_TOL}")
     pg = bench_pg_torch.bench(dev)
@@ -1427,6 +1567,7 @@ def phase_tools(dev, records: dict, city_root: str, repro_frames: int, steps: in
     import probe_ablate_torch
     import repro_headline_torch
     from vo_tpu_torch.ops import kernels
+    from vo_tpu_torch.utils.config import VOConfig
 
     fails = []
     card = _card_line()
@@ -1472,6 +1613,13 @@ def phase_tools(dev, records: dict, city_root: str, repro_frames: int, steps: in
         if "error" not in r and (r.get("k1"), r.get("k2"), r.get("lk")) != (k1, k2, lk):
             fails.append(f"(b) {name}: launches K1 {r.get('k1')} / K2 {r.get('k2')} / LK "
                          f"solve {r.get('lk')}, want {k1} / {k2} / {lk}")
+    iters = VOConfig().ba.iters
+    for name, r in rows.items():
+        if "error" not in r and not (r.get("c_runs", 0) > 0
+                                     and r.get("ba_solve") == iters * r["c_runs"]):
+            fails.append(f"(b) {name}: BA's solve launched {r.get('ba_solve')} times on the "
+                         f"device's count, want {iters} for each of the {r.get('c_runs')} "
+                         f"frames on which C ran (> 0)")
     plain = rows.get("klt_pallas_off", {}).get("poses_sha256")
     if repro_frames == TOOLS_REPRO_FRAMES and plain != REPRO_PLAIN_POSES_SHA256:
         fails.append(f"(b) klt_pallas_off's poses hash to {plain}, want "
@@ -1826,6 +1974,15 @@ def _recoveries() -> int:
     from vo_tpu_torch.models import graphed
 
     return (graphed.summary() or {}).get("recoveries", 0)
+
+
+def _ba_on_device() -> tuple:
+    """(BA's solve launches, frames on which C ran) over every cached
+    runner's replays so far, as the device counted them (a device read)."""
+    from vo_tpu_torch.models import graphed
+
+    runners = graphed.RUNNERS.runners()
+    return (graphed.device_launches()["ba_solve"], sum(r.stats.keyframes for r in runners))
 
 
 def _free() -> None:
@@ -2627,6 +2784,11 @@ def main(argv=None) -> int:
                          replaces=None),
         "lk_solve_batched": dict(name="lk_solve_batched", route="cuda",
                                  source="vo_tpu_torch/csrc/lk_solve.cu", replaces=None),
+        # No TPU kernel either: BA's camera system is XLA ops in the JAX package.
+        "ba_solve": dict(name="ba_solve", route="cuda", source="vo_tpu_torch/csrc/ba_solve.cu",
+                         replaces=None),
+        "ba_solve_batched": dict(name="ba_solve_batched", route="cuda",
+                                 source="vo_tpu_torch/csrc/ba_solve.cu", replaces=None),
     }
     for rec in records.values():
         rec.update(launches=0, max_abs_err=None, ms=None, device_ms=None, plain_ms=None,
@@ -2672,6 +2834,7 @@ def main(argv=None) -> int:
         run("k2b", phase_k2b, dev, records["extract_patches_batched"])
         run("lk", phase_lk, dev, records["lk_solve"])
         run("lkb", phase_lkb, dev, records["lk_solve_batched"])
+        run("ba", phase_ba, dev, records)
     city = tempfile.mkdtemp(prefix="vo_city_")  # the headline's city, on disk
     try:
         run("headline", phase_headline, dev, args.frames, records, city)

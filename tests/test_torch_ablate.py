@@ -283,7 +283,8 @@ def test_ablation_runs_every_variant_on_the_cpu(tool, small_city, monkeypatch, c
         assert np.isfinite(nums).all(), r
         assert r["finite"] == r["steps"] and r["k1"] == 0 and r["k2"] == 0, r
     if tool == "repro":  # the CPU runs the plain versions in every variant
-        assert all(r["bit_equal_to_default"] and r["lk"] == 0 for r in rows)
+        assert all(r["bit_equal_to_default"] and r["lk"] == 0 and r["ba_solve"] == 0
+                   for r in rows)
         assert len({r["poses_sha256"] for r in rows}) == 1
     if tool == "keyframes":
         assert {r["variant"]: r["pushes"] for r in rows}["no-ba"] == 0

@@ -22,7 +22,9 @@ segment once, "replay" runs it again on the same static buffers), at 160x120
   * the one step schedule (`pipeline.run_step`) over both device
     predicates; the check of counted launches against a graph's kernel
     nodes; the executor a rollout reports, from what ran; a runner kept per
-    frame dtype.
+    frame dtype;
+  * a conditional body may launch a kernel counted on the device (BA's
+    solve in C), never one counted on the host.
 
 The CUDA graphs themselves against the eager rollout are tested on the card
 in tests/test_torch_cuda.py (which imports no jax, so it runs there).
@@ -45,10 +47,12 @@ from test_torch_pipeline import CAPACITY as DOT_CAPACITY
 from test_torch_pipeline import K_DOTS, _replay, dot_world  # noqa: F401  (fixture)
 from vo_tpu_torch.data import synthetic as tsyn
 from vo_tpu_torch.geom.points import inverse
+from vo_tpu_torch.models import ba as tba
 from vo_tpu_torch.models import graphed
 from vo_tpu_torch.models import pipeline as tpipe
 from vo_tpu_torch.ops import kernels
 from vo_tpu_torch.ops import klt as tklt
+from vo_tpu_torch.ops.linalg import spd_solve_blocked
 from vo_tpu_torch.ops.ransac import Drawn, draw_uniforms, sample_indices
 from vo_tpu_torch.parallel import multiseq as tmulti
 from vo_tpu_torch.utils.cache import RunnerCache, runner_key
@@ -470,6 +474,53 @@ def test_check_recorded_holds_counts_to_the_graph():
     with pytest.raises(RuntimeError, match="holds 3 lk_solve_kernel nodes"):
         graphed.check_recorded("A", {"extract_patches": 4, "corner_response_nms": 1,
                                      "lk_solve_batched": 4}, names + [solve] * 3)
+
+
+def test_check_recorded_holds_device_counted_launches():
+    """A kernel counted on the device is held to its graph's nodes as a
+    host-counted one is: BA's five solves in C's graph, and in the frame's
+    conditional bodies as many as the branches' captures made."""
+    names = ["void at::native::vectorized_elementwise_kernel<4>(...)"]
+    solve = "_ZN12_GLOBAL__N_115ba_solve_kernelENS_8BaSystemE"
+    graphed.check_recorded("C", {"ba_solve": 5}, names + [solve] * 5)
+    with pytest.raises(RuntimeError, match="holds 5 ba_solve_kernel nodes"):
+        graphed.check_recorded("C", {"ba_solve": 4}, names + [solve] * 5)
+    with pytest.raises(RuntimeError, match="holds 5 ba_solve_kernel nodes"):
+        graphed.check_recorded("frame's conditional bodies", {}, [solve] * 5)
+    graphed.check_recorded("D", {}, names)
+
+
+@pytest.mark.parametrize("counted", ["on_device", "on_host"])
+def test_a_branch_may_launch_only_device_counted_kernels(city, monkeypatch, counted):
+    """C's body is captured as a conditional branch. A solve whose launches
+    count on the device (the wrapper's calls tallied in
+    `kernels.device_calls`) is accepted there: the runner keeps what the
+    bodies launched and reports the device's count. One counted on the host
+    (`kernels.launch_counts`) is refused at capture."""
+    frames, K = city
+    real = tba._gn_step
+
+    def solve(S, b):
+        if counted == "on_device":
+            kernels.device_calls["ba_solve"] += 1
+        else:
+            kernels.launch_counts["lk_solve"] += 1
+        return spd_solve_blocked(S, b)
+
+    monkeypatch.setattr(tba, "_gn_step", lambda *a, **kw: real(*a, **kw, solve=solve))
+    calls = dict(kernels.device_calls)
+    state = _boot(frames, K, 2023)
+    if counted == "on_host":
+        with pytest.raises(RuntimeError, match="branch C launches"):
+            _captured(state, frames[3:5], K)
+        return
+    cache = RunnerCache()
+    (_, outs), runner = _captured(state, frames[3:9], K, cache=cache)
+    assert runner._in_bodies == {"ba_solve": CFG.ba.iters}
+    assert kernels.device_calls == calls  # the warm-up and the capture do not count
+    assert bool(torch.isfinite(outs.pose).all()) and runner.stats.keyframes > 0
+    # The stand-in runs the CPU's solve, which the device never counts.
+    assert graphed.summary(cache)["device_launches"] == {"ba_solve": 0}
 
 
 def test_rollouts_report_what_ran(city):

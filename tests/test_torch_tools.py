@@ -119,16 +119,19 @@ def test_profile_rows(tmp_path, capsys, monkeypatch):
 
 
 def test_solver_pairs_agree():
-    """The blocked Cholesky against torch.linalg.solve on the demo window
-    (W = 6, L = 1024): the GN step's poses and landmarks within 1e-4 of each
-    other (relative, max norm), the ten PnP solves likewise."""
+    """The blocked Cholesky and the step's own solve (`kernels.ba_solve`,
+    the blocked Cholesky on the CPU) against torch.linalg.solve on the demo
+    window (W = 6, L = 1024): the GN step's poses and landmarks within 1e-4
+    of each other (relative, max norm), the ten PnP solves likewise."""
     out = bench_solvers_torch.bench(CPU, reps=1)
     assert out["ba_pose_rel_diff"] < 1e-4 and out["ba_landmark_rel_diff"] < 1e-4
+    assert out["ba_kernel_pose_rel_diff"] < 1e-4 and out["ba_kernel_landmark_rel_diff"] < 1e-4
+    assert out["ba_kernel_pose_rel_diff"] == out["ba_pose_rel_diff"]  # the CPU's solve is (b)
     assert out["pnp_solve_rel_diff"] < 1e-4
     # The camera system itself carries the 1e8 gauge pivot: f32's condition.
-    assert out["ba_solve_rel_diff"] < 1e-3
+    assert out["ba_solve_rel_diff"] < 1e-3 and out["ba_kernel_solve_rel_diff"] < 1e-3
     times = [v for k, v in out.items() if k.endswith("_ms")]
-    assert len(times) == 4 and np.isfinite(times).all() and min(times) > 0
+    assert len(times) == 5 and np.isfinite(times).all() and min(times) > 0
 
 
 def test_pose_graph_bench():

@@ -6,10 +6,11 @@ tools/bench_solvers.py.
   * BA: one Gauss-Newton step (`models/ba.py::_gn_step`) on the demo window
     at W = 6, L = 1024 (`parallel/dist_ba.py::demo_window`, seed 3), its
     6W x 6W Schur camera system solved (a) by `torch.linalg.solve` on the
-    dense system (LU with partial pivoting) and (b) by the blocked Cholesky
-    of `ops/linalg.py::spd_solve_blocked`, the step's own. The solver is
-    passed to the step as an argument; everything else in the step is the
-    same.
+    dense system (LU with partial pivoting), (b) by the blocked Cholesky
+    of `ops/linalg.py::spd_solve_blocked`, the CPU's solve, and (c) by
+    `ops/kernels.py::ba_solve`, the step's own: on the card one launch of
+    csrc/ba_solve.cu (on the CPU it is (b)). The solver is passed to the
+    step as an argument; everything else in the step is the same.
   * PnP: ten 6x6 SPD solves in a row, as `refine_pose_gn` makes one per GN
     iteration (each depending on the last, as in a scan): (a)
     `torch.linalg.solve` and (b) `ops/linalg.py::spd_solve_small`.
@@ -17,12 +18,14 @@ tools/bench_solvers.py.
 Each case: the mean over `--reps` calls on the host clock with one
 synchronize at the end (the JAX tool's measure), and how far the two
 solvers' results differ, max |a - b| / max |b|: for BA the step's poses and
-landmarks (`ba_pose_rel_diff`, `ba_landmark_rel_diff`) and, for the record,
-the camera system's solution itself (`ba_solve_rel_diff`: the 1e8 gauge
-pivot leaves it ill-conditioned, so it differs by the f32 condition, some
-1e-5); for PnP the ten solutions (`pnp_solve_rel_diff`). The tests hold the
-step's results and the PnP solutions within 1e-4. Prints the card's name and
-power limit and one JSON line.
+landmarks, (b) against (a) (`ba_pose_rel_diff`, `ba_landmark_rel_diff`) and
+(c) against (a) (`ba_kernel_pose_rel_diff`, `ba_kernel_landmark_rel_diff`),
+and, for the record, the camera system's solution itself
+(`ba_solve_rel_diff`, `ba_kernel_solve_rel_diff`: the 1e8 gauge pivot leaves
+it ill-conditioned, so it differs by the f32 condition, some 1e-5); for PnP
+the ten solutions (`pnp_solve_rel_diff`). The tests hold the step's results
+and the PnP solutions within 1e-4. Prints the card's name and power limit
+and one JSON line.
 
     python tools/bench_solvers_torch.py [--reps 30]
     python tools/bench_solvers_torch.py --device cpu --reps 2   # on the CPU, only when asked
@@ -86,6 +89,7 @@ def bench(dev, reps: int = 30) -> dict:
     import torch
 
     from vo_tpu_torch.models.ba import BAWindow, _gn_step
+    from vo_tpu_torch.ops.kernels import ba_solve
     from vo_tpu_torch.ops.linalg import spd_solve_blocked, spd_solve_small
     from vo_tpu_torch.parallel.dist_ba import demo_window
 
@@ -96,7 +100,7 @@ def bench(dev, reps: int = 30) -> dict:
     out = {}
 
     # The step's own camera system, caught through the solver argument and
-    # solved both ways; then the step's results with each solver.
+    # solved each way; then the step's results with each solver.
     systems = []
 
     def caught(S, b):
@@ -105,9 +109,12 @@ def bench(dev, reps: int = 30) -> dict:
 
     _gn_step(win, K, 1e-3, 2.0, solve=caught)
     (S, b), = systems
-    out["ba_solve_rel_diff"] = _rel_diff(lu_blocked(S, b), spd_solve_blocked(S, b))
+    lu = lu_blocked(S, b)
+    out["ba_solve_rel_diff"] = _rel_diff(lu, spd_solve_blocked(S, b))
+    out["ba_kernel_solve_rel_diff"] = _rel_diff(lu, ba_solve(S, b))
     steps = {}
-    for name, solve in (("lu", lu_blocked), ("cholesky", spd_solve_blocked)):
+    for name, solve in (("lu", lu_blocked), ("cholesky", spd_solve_blocked),
+                        ("kernel", ba_solve)):
         def step(solve=solve):
             return _gn_step(win, K, 1e-3, 2.0, solve=solve)
 
@@ -115,7 +122,11 @@ def bench(dev, reps: int = 30) -> dict:
         out[f"ba_gn_iter_{name}_ms"] = _mean_ms(step, dev, reps)
     out["ba_pose_rel_diff"] = _rel_diff(steps["lu"][0], steps["cholesky"][0])
     out["ba_landmark_rel_diff"] = _rel_diff(steps["lu"][1], steps["cholesky"][1])
+    out["ba_kernel_pose_rel_diff"] = _rel_diff(steps["lu"][0], steps["kernel"][0])
+    out["ba_kernel_landmark_rel_diff"] = _rel_diff(steps["lu"][1], steps["kernel"][1])
     out["ba_lu_over_cholesky"] = out["ba_gn_iter_lu_ms"] / out["ba_gn_iter_cholesky_ms"]
+    out["ba_cholesky_over_kernel"] = (out["ba_gn_iter_cholesky_ms"]
+                                      / out["ba_gn_iter_kernel_ms"])
 
     rng = np.random.default_rng(0)
     J = torch.as_tensor(rng.normal(size=(64, 6)).astype(np.float32), device=dev)

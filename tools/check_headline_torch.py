@@ -22,7 +22,8 @@ is not for run-to-run noise. The expected figure holds for the card's
 route only: there LK's solve is the CUDA kernel, on the CPU its plain
 version, and the two part by a few ulps a level, which over 597 steps
 moves the seeded draw (at seed 2023 the card read 0.5671 m with the plain
-solve and 1.359 m with the kernel, on an NVIDIA H100 80GB HBM3 at 700 W).
+solve and 1.359 m with the kernel, and 1.208 m once BA's camera system is
+solved by its kernel too, on an NVIDIA H100 80GB HBM3 at 700 W).
 A CPU run is not held to the card's figure: read its ATE, not its exit
 code. chip_smoke.py applies `gate` to its own headline run.
 

@@ -9,7 +9,8 @@ shapes below, across and at a tile), `phase_k2` (the patch gather K2 and the
 pair launch of an LK level, bit-identical), `phase_k1b` and `phase_k2b` (the
 same kernels over 6 lanes), `phase_lk` and `phase_lkb` (the LK solve on each
 level's patches against its plain version, one lane and six, each level
-timed). The checks are chip_smoke.py's own functions, not copies;
+timed), `phase_ba` (BA's camera-system solve against the blocked Cholesky
+and float64, one lane and six, timed). The checks are chip_smoke.py's own functions, not copies;
 chip_smoke.py runs them itself, so it does not run this tool.
 
 Exit code 0 and "PASS" when every check holds, 1 on a mismatch, 2 when no
@@ -45,7 +46,8 @@ def main(argv=None) -> int:
     failures = []
     for name, phase in (("k1", chip_smoke.phase_k1), ("k2", chip_smoke.phase_k2),
                         ("k1b", chip_smoke.phase_k1b), ("k2b", chip_smoke.phase_k2b),
-                        ("lk", chip_smoke.phase_lk), ("lkb", chip_smoke.phase_lkb)):
+                        ("lk", chip_smoke.phase_lk), ("lkb", chip_smoke.phase_lkb),
+                        ("ba", chip_smoke.phase_ba)):
         try:
             phase(dev, {})
         except AssertionError as exc:  # a mismatch; a build or launch error propagates
@@ -53,7 +55,8 @@ def main(argv=None) -> int:
     if failures:
         print("FAIL:", *failures, sep="\n  ")
     else:
-        print(f"PASS: K1, K2, K1b, K2b and the LK solve match their plain versions on {card}")
+        print(f"PASS: K1, K2, K1b, K2b, the LK solve and BA's solve match their plain "
+              f"versions on {card}")
     print(json.dumps({"tool": "check_kernels_cuda", "device": card, "failures": failures}))
     return 1 if failures else 0
 

@@ -33,12 +33,21 @@ def cuda_or_cpu(choice: str, tool: str):
 
 def counting_launches(fn, *a, **k):
     """(fn(*a, **k), the kernel launches it made by name): the counts are
-    read before and after, never reset, so an enclosing count goes on."""
+    read before and after, never reset, so an enclosing count goes on. The
+    kernels counted on the device (BA's solve, `ba_solve`) count their
+    eager calls and the process's runners' replays (a read of the device)."""
+    from vo_tpu_torch.models import graphed
     from vo_tpu_torch.ops import kernels
 
-    before = dict(kernels.launch_counts)
+    def counted():
+        replayed = graphed.device_launches()
+        return {**kernels.launch_counts,
+                **{n: kernels.device_calls[n] + replayed[n] for n in kernels.DEVICE_COUNTED}}
+
+    before = counted()
     out = fn(*a, **k)
-    return out, {n: kernels.launch_counts[n] - before[n] for n in before}
+    after = counted()
+    return out, {n: after[n] - before[n] for n in after}
 
 
 def run_variants(variants: dict, measure) -> list:

@@ -16,6 +16,9 @@ a CUDA tensor; False: the plain PyTorch version), as `run_vo_torch.py
     python tools/repro_headline_torch.py --device cpu --frames 12
 
 Each variant prints ATE, RPE, frames/s, its K1, K2 and LK solve launches,
+BA's solve launches as the device counted them (`ba_solve`: `ba.iters` for
+each frame on which the captured step ran C, 0 on the CPU) and those frames
+(`c_runs`, the device's count),
 the largest pose difference from `pallas_auto(default)`
 (`bit_equal_to_default`: the poses equal the default's bit for bit) and the
 sha256 of its poses (`poses_sha256`, the first 16 hex digits of the float32
@@ -69,7 +72,7 @@ def repro(imgs, K, gt_poses, dev, also_detect: bool = True) -> list:
     """One row a variant (see the module's docstring)."""
     import torch
 
-    from vo_tpu_torch.models.graphed import capture_ahead
+    from vo_tpu_torch.models.graphed import RUNNERS, capture_ahead
     from vo_tpu_torch.models.pipeline import ROLLED, bootstrap, executor_since, vo_rollout
     from vo_tpu_torch.utils.config import VOConfig
 
@@ -88,7 +91,9 @@ def repro(imgs, K, gt_poses, dev, also_detect: bool = True) -> list:
             return out, outs, time.perf_counter() - t0
 
         rolled = dict(ROLLED)
+        c_runs = sum(r.stats.keyframes for r in RUNNERS.runners())
         (out, outs, dt), launches = common_torch.counting_launches(run)
+        c_runs = sum(r.stats.keyframes for r in RUNNERS.runners()) - c_runs
         boot = out.pose.cpu().numpy()
         est = bench_torch.step_poses(boot, outs)
         ate, t_rpe, r_rpe = bench_torch.trajectory_errors(boot, outs, gt_poses)
@@ -106,6 +111,8 @@ def repro(imgs, K, gt_poses, dev, also_detect: bool = True) -> list:
             "k1": launches["corner_response_nms"],
             "k2": launches["extract_patches"],
             "lk": launches["lk_solve"],
+            "ba_solve": launches["ba_solve"],
+            "c_runs": c_runs,
             "max_pose_diff": float(abs(est - default[0]).max()),
             "bit_equal_to_default": bool((est == default[0]).all()),
             "poses_sha256": hashlib.sha256(est.tobytes()).hexdigest()[:16],

@@ -5,7 +5,9 @@ BA (parallel/dist_ba.py).
   * fixed window of W keyframes and L landmark rows (L = table capacity);
   * all (L, W) reprojection residuals and analytic Jacobians in one sweep;
   * landmark blocks eliminated with closed-form 3x3 inverses, the reduced
-    camera system (W, W, 6, 6) solved by hand-written block Cholesky;
+    camera system (W, W, 6, 6) solved by Cholesky: on the card one launch
+    of csrc/ba_solve.cu over every lane, on the CPU the hand-written block
+    Cholesky (ops/kernels.py::ba_solve);
   * fixed iteration count, Levenberg damping, gauge frozen at the oldest
     keyframe, similarity renormalization of the scale, and an accept veto.
 
@@ -25,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from vo_tpu_torch.geom.lie import pose_inverse, se3_exp
-from vo_tpu_torch.ops.linalg import spd_solve_blocked
+from vo_tpu_torch.ops.kernels import ba_solve
 from vo_tpu_torch.ops.ransac import lane_by_lane, pick, where_lane
 
 # Gauge fixing: diagonal added to the first keyframe's camera block.
@@ -169,12 +171,13 @@ def _same(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gn_step(window: BAWindow, K: torch.Tensor, damping: float, huber_px: float,
-             reduce_fn=_same, solve=spd_solve_blocked):
+             reduce_fn=_same, solve=ba_solve):
     """One damped Schur-complement GN step. Returns (new kf_pose, new
     landmark, mean masked reprojection error before the step).
 
-    `solve(S, b)` solves the (..., W, W, 6, 6) camera system; the blocked
-    Cholesky is the step's, tools/bench_solvers_torch.py times a dense LU
+    `solve(S, b)` solves the (..., W, W, 6, 6) camera system;
+    `kernels.ba_solve` is the step's (the kernel on the card, the blocked
+    Cholesky on the CPU), tools/bench_solvers_torch.py times the others
     against it.
 
     `reduce_fn` sums landmark-partitioned terms over the ranks that hold the

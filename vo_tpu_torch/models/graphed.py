@@ -61,12 +61,17 @@ Static buffers and the hazards they bring:
 - The kernel wrappers count launches when Python calls them, that is at
   capture. The runner captures (and warms up) with counting suspended
   (`kernels.uncounted`), keeps what the frame's graph launched, and adds
-  that at every replay: launch counts are the eager path's. The kernels of
-  ops/kernels.py launch outside the conditional bodies (a body that would
-  launch one is refused: its launches could not be counted without a
-  read). On the card the count is held against the graph itself at
-  capture: it must hold one node of each kernel for every launch counted,
-  and its bodies none (`check_recorded`), or the capture raises.
+  that at every replay: launch counts are the eager path's. The kernels
+  counted on the host launch outside the conditional bodies (a body that
+  would launch one is refused: its launches could not be counted without a
+  read). A body may launch a kernel that counts on the device
+  (`kernels.DEVICE_COUNTED`, BA's solve in C): its replays count into a
+  slot of the runner's `taken`, beside the branches' counts, and
+  `summary()` reads it.
+  On the card the counts are held against the graph itself at capture: it
+  must hold one node of each kernel for every launch counted, its bodies
+  one for every device-counted launch their captures made and none of the
+  others (`check_recorded`), or the capture raises.
 - No host read during the chunk's frames: what the frame loop runs is a
   replay, copies between device buffers and the draws, none of which reads
   the device. `RunnerStats.syncs` holds what torch's sync debug mode
@@ -264,11 +269,13 @@ def graph_nodes(graph: int, bodies: dict | None = None) -> GraphNodes:
 
 def check_recorded(segment: str, launches: dict, kernel_names: list) -> None:
     """Raise unless a graph holds one node of each kernel of ops/kernels.py
-    for every launch that its capture counted (`launches`, by counter):
-    the nodes whose function name holds the kernel's symbol
-    (`kernels.SYMBOLS`) against the counted launches, kernel by kernel."""
-    for symbol in sorted(set(kernels.SYMBOLS.values())):
-        counted = sum(n for c, n in launches.items() if kernels.SYMBOLS[c] == symbol)
+    for every launch that its capture counted (`launches`, by counter, on
+    the host or on the device): the nodes whose function name holds the
+    kernel's symbol (`kernels.SYMBOLS`, `kernels.DEVICE_COUNTED`) against
+    the counted launches, kernel by kernel."""
+    symbols = {**kernels.SYMBOLS, **kernels.DEVICE_COUNTED}
+    for symbol in sorted(set(symbols.values())):
+        counted = sum(n for c, n in launches.items() if symbols[c] == symbol)
         held = sum(symbol in name for name in kernel_names)
         if counted != held:
             raise RuntimeError(f"graph {segment} holds {held} {symbol} nodes; its capture "
@@ -437,7 +444,9 @@ class RunnerStats:
     conditionals: int | None = None  # IF nodes in the frame's graph (None: not read)
     frames: int = 0
     syncs: int = 0  # syncs torch's detector reported during the chunks' frames
-    taken: torch.Tensor | None = None  # (2,) frames on which R, C ran: device counts
+    # Device counts: the frames on which R, C ran, then the replays' launches
+    # of each kernels.DEVICE_COUNTED kernel, counted by the kernel itself
+    taken: torch.Tensor | None = None
 
     @property
     def recoveries(self) -> int:
@@ -448,6 +457,10 @@ class RunnerStats:
     def keyframes(self) -> int:
         """Frames on which C ran (a read of the device count)."""
         return int(self.taken[1])
+
+    def device_launches(self) -> dict:
+        """{counter: launches} of the device-counted kernels (a read)."""
+        return dict(zip(kernels.DEVICE_COUNTED, self.taken[len(BRANCHES):].tolist()))
 
 
 class GraphedRollout:
@@ -461,8 +474,8 @@ class GraphedRollout:
         self.capture = capture if capture is not None else (
             CudaGraphs(dev) if dev.type == "cuda" else StandIn())
         lanes = len(state.rng)
-        self.stats = RunnerStats(taken=torch.zeros(len(BRANCHES), dtype=torch.int64,
-                                                   device=dev))
+        self.stats = RunnerStats(taken=torch.zeros(
+            len(BRANCHES) + len(kernels.DEVICE_COUNTED), dtype=torch.int64, device=dev))
         t0 = time.perf_counter()
         # Static buffers, outside capture: the state (a scratch copy of the
         # first caller's until a rollout copies its own in), frame, K, the
@@ -486,13 +499,15 @@ class GraphedRollout:
         self._taken = {_storage(t) for t in _leaves(
             (self.state, self.image, self.K, self.uniforms, self.rec_uniforms,
              self.stats.taken))}
+        self._in_bodies: dict = {}  # device-counted launches the branches' captures made
         bodies = {}
 
         def warm(name, pred, run, skipped):
             bodies[name] = run  # the branch's body as the schedule gives it, marks included
             return run()
 
-        with kernels.uncounted():
+        with kernels.uncounted(), \
+                kernels.counting_on_device(self.stats.taken[len(BRANCHES):]):
             with self.capture.warming_up():
                 # One frame of the schedule with every branch taken: the
                 # slots, and every lazy initialisation, outside capture.
@@ -503,7 +518,7 @@ class GraphedRollout:
                              for name, body in bodies.items()}
             self.frame = self._capture("frame", lambda: run_step(
                 self._segments(), self._if_node, cfg, mark))
-        self.stats.taken.zero_()  # the stand-in's capture ran the frame once
+        self.stats.taken.zero_()  # the warm-up ran C, the stand-in's capture the frame
         if self.spans is not None:
             self.spans.reset()  # so did the warm-up's marks
         if dev.type == "cuda":
@@ -519,18 +534,25 @@ class GraphedRollout:
 
     def _capture(self, name: str, fn: Callable[[], Any], branch: bool = False) -> Captured:
         """Capture `fn` as graph `name`; a frame's graph keeps its launches
-        (added at every replay), a branch must launch no counted kernel."""
-        before = dict(kernels.launch_counts)
+        (added at every replay), a branch must launch no kernel counted on
+        the host (one counted on the device counts itself)."""
+        before, calls = dict(kernels.launch_counts), dict(kernels.device_calls)
         captured = self.capture.capture(fn, branch)
         launches = {k: v - before[k] for k, v in kernels.launch_counts.items()
                     if v != before[k]}
+        on_device = {k: v - calls[k] for k, v in kernels.device_calls.items() if v != calls[k]}
         if branch and launches:
             raise RuntimeError(f"branch {name} launches {launches}: a conditional body's "
-                               "launches cannot be counted without a host read")
+                               "launches cannot be counted without a host read (only "
+                               f"{sorted(kernels.DEVICE_COUNTED)} count on the device)")
         if captured.nodes is not None:
-            check_recorded(name, launches, captured.nodes.kernels)
-            check_recorded(f"{name}'s conditional bodies", {}, captured.nodes.body_kernels)
-        if not branch:
+            check_recorded(name, {**launches, **on_device}, captured.nodes.kernels)
+            check_recorded(f"{name}'s conditional bodies", self._in_bodies,
+                           captured.nodes.body_kernels)
+        if branch:
+            for k, v in on_device.items():
+                self._in_bodies[k] = self._in_bodies.get(k, 0) + v
+        else:
             self.launches = launches
         return captured
 
@@ -774,8 +796,10 @@ def capture_ahead(state: VOState, images: torch.Tensor, K: torch.Tensor, cfg: VO
 
 def summary(cache: RunnerCache = RUNNERS) -> dict | None:
     """What the cache's runners replayed, for a JSON line: host syncs a
-    frame, the frames on which R and C ran (the device counts, read here),
-    each runner's graphs with their nodes and conditional nodes, and
+    frame, the frames on which R and C ran and the launches of the
+    device-counted kernels, `device_launches` (the device counts, read
+    here: BA's solve, `ba_solve`, launches `ba.iters` times a C), each
+    runner's graphs with their nodes and conditional nodes, and
     `spans`, the aggregates of the runners' span rings over the steps not
     run under the profiler (`spans.statistics`; None where no runner keeps
     spans or no step counts). Reading the rings recalibrates the card's
@@ -791,11 +815,20 @@ def summary(cache: RunnerCache = RUNNERS) -> dict | None:
         syncs_per_step=sum(s.syncs for s in stats) / max(frames, 1),
         recoveries=sum(s.recoveries for s in stats),
         keyframes=sum(s.keyframes for s in stats),
+        device_launches=device_launches(cache),
         graphs=[dict(lanes=len(r.samplers), nodes=r.stats.graphs,
                      conditional_nodes=r.stats.conditionals, frames=r.stats.frames,
-                     capture_s=round(r.stats.capture_s, 3)) for r in runners],
+                     capture_s=round(r.stats.capture_s, 3),
+                     device_launches=r.stats.device_launches()) for r in runners],
         spans=spans_mod.statistics(readouts) if readouts else None,
     )
+
+
+def device_launches(cache: RunnerCache = RUNNERS) -> dict:
+    """{counter: launches} of the device-counted kernels over the cache's
+    runners' replays (a read of the device)."""
+    reads = [r.stats.device_launches() for r in cache.runners()]
+    return {name: sum(d[name] for d in reads) for name in kernels.DEVICE_COUNTED}
 
 
 def span_rows(cache: RunnerCache = RUNNERS) -> list:

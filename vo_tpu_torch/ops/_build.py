@@ -52,6 +52,9 @@ _SIGNATURES = {
     #  stream) — one LK level's solve after its patch pair
     "vo_lk_solve": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     ctypes.c_float, ctypes.c_float, ctypes.c_float, _P),
+    # (S, b, x, B, W, nb, S's five strides, b's three, count, stream) — BA's
+    # camera system, every lane in one launch
+    "vo_ba_solve": (_P, _P, _P, _I, _I, _I, *(ctypes.c_longlong,) * 8, _P, _P),
     # (stream) — an empty kernel, the launch-latency floor
     "vo_empty_launch": (_P,),
     # (capturing stream, device bool, branch graph, IF node out, body graph

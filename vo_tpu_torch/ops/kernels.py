@@ -12,6 +12,8 @@ the gathers:
            extract_patch_pairs   launch per pyramid level, 4 per step)
   lk_solve                     — csrc/lk_solve.cu     (LK's solve on the pair's
                                  patches, one launch per pyramid level)
+  ba_solve                     — csrc/ba_solve.cu     (BA's camera system, one
+                                 launch per Gauss-Newton iteration)
 
 Each kernel takes a leading batch dimension (the lane is a grid dimension),
 so B lanes are ONE launch, not B. The gather kernel also takes two jobs, so
@@ -34,6 +36,14 @@ than one lane counts under the `_batched` name (K1b, K2b), any other under
 the plain name (K1, K2); a launch of the pair counts once, under the
 gather's names.
 
+BA's solve runs inside a conditional body of the frame's graph, where a
+replay cannot tell the host whether it ran. Its wrapper's calls, eager
+launches and captures alike, are tallied on the host in `device_calls`
+(never in `launch_counts`), and a capture holds its graph's nodes against
+them. Its replays count on the device (`DEVICE_COUNTED`): inside
+`counting_on_device`, which a runner sets around its capture, each launch
+adds one, from one thread, to the runner's int64 slot of the kernel.
+
 On an H100 every kernel's byte bound lies below what one launch through
 this ctypes path costs the host, so the wrappers keep their own work small:
 the checks are one boolean chain (the named errors are raised only after it
@@ -54,6 +64,7 @@ from vo_tpu_torch.ops.harris import (
     nms_masked_response,
     shi_tomasi_response,
 )
+from vo_tpu_torch.ops.linalg import spd_solve_blocked
 
 launch_counts = {
     "corner_response_nms": 0,
@@ -75,6 +86,11 @@ SYMBOLS = {
     "lk_solve_batched": "lk_solve_kernel",
 }
 
+# Kernels counted on the device: counter -> the __global__ function.
+DEVICE_COUNTED = {"ba_solve": "ba_solve_kernel"}
+device_calls = {name: 0 for name in DEVICE_COUNTED}
+_device_slots: torch.Tensor | None = None  # set by `counting_on_device`
+
 _MODES = {"shi_tomasi": 0, "harris": 1}
 
 
@@ -89,11 +105,34 @@ def uncounted():
     launches of its segment (its replays count them: models/graphed.py),
     and the warm-up that capture needs runs on a scratch copy of the state:
     neither is a launch of the path."""
-    saved = dict(launch_counts)
+    saved, saved_calls = dict(launch_counts), dict(device_calls)
     try:
         yield
     finally:
         launch_counts.update(saved)
+        device_calls.update(saved_calls)
+
+
+@contextlib.contextmanager
+def counting_on_device(slots: torch.Tensor):
+    """Launches of the `DEVICE_COUNTED` kernels on `slots`' device add one to
+    their int64 slot of `slots` (in `DEVICE_COUNTED`'s order) inside: a CUDA
+    graph captured here adds to it at every replay. Elsewhere they count
+    nothing on the device."""
+    global _device_slots
+    saved, _device_slots = _device_slots, slots
+    try:
+        yield
+    finally:
+        _device_slots = saved
+
+
+def _count_slot(device: torch.device, name: str) -> int | None:
+    """The address of counter `name`'s slot set by `counting_on_device` on
+    `device`, else None (the kernel counts nothing)."""
+    if _device_slots is None or _device_slots.device != device:
+        return None
+    return _device_slots.data_ptr() + 8 * list(DEVICE_COUNTED).index(name)
 
 
 def _wants_kernel(t: torch.Tensor, use_kernel: bool | None) -> bool:
@@ -482,3 +521,54 @@ def lk_solve(
     if actives is not None:
         actives.append(live)
     return flow, conditioned, err
+
+
+# ---------------------------------------------------------------------------
+# BA's camera system — one launch per Gauss-Newton iteration
+# ---------------------------------------------------------------------------
+
+BA_SOLVE_MAX_N = 96  # W * block size: kMaxN of csrc/ba_solve.cu
+
+
+def ba_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The SPD block system sum_j S[i, j] x_j = b_i of a BA window: S (W, W,
+    nb, nb) and b (W, nb), or (B, W, W, nb, nb) and (B, W, nb) over lanes;
+    only S's lower block triangle is read. Returns x shaped as b.
+
+    On the CPU: `ops/linalg.py::spd_solve_blocked`, the blocked Cholesky,
+    which is also the kernel's oracle. On the card: ONE launch of
+    csrc/ba_solve.cu for all lanes, a block a lane: the Cholesky factor of
+    the dense (W nb) x (W nb) matrix read through S's strides (no copy),
+    chol_small's roundings, each element's terms in ascending order, then
+    both substitutions. The two agree to the system's condition in f32, not
+    bit for bit; a lane equals its single run bit for bit on either. A
+    call counts in `device_calls`, a runner's replay of it on the device
+    (`DEVICE_COUNTED`), so a CUDA graph's conditional body may hold it. float32 only; W nb at most
+    `BA_SOLVE_MAX_N`. There is no `use_kernel`: the tensor's device alone
+    decides, so the card never runs two solvers for one system.
+    """
+    if not S.is_cuda:
+        return spd_solve_blocked(S, b)
+    lead = S.shape[:-4]
+    W, nb = S.shape[-4], S.shape[-1]
+    if not (len(lead) <= 1 and S.shape == lead + (W, W, nb, nb) and b.shape == lead + (W, nb)):
+        raise ValueError(f"ba_solve wants S (W, W, nb, nb) and b (W, nb), or both with one "
+                         f"lane axis; got {tuple(S.shape)} and {tuple(b.shape)}")
+    if S.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"ba_solve's kernel wants float32; got {S.dtype} and {b.dtype}")
+    if b.device != S.device:
+        raise ValueError("S and b must be on one CUDA device")
+    if W * nb > BA_SOLVE_MAX_N:
+        raise ValueError(f"ba_solve's kernel takes W * nb up to {BA_SOLVE_MAX_N}; got "
+                         f"W = {W}, nb = {nb}")
+    dev = S.device
+    x = torch.empty(b.shape, dtype=torch.float32, device=dev)
+    ss, bs = S.stride(), b.stride()
+    from vo_tpu_torch.ops._build import library
+
+    _launch(dev, "ba_solve", library().vo_ba_solve,
+            S.data_ptr(), b.data_ptr(), x.data_ptr(), lead[0] if lead else 1, W, nb,
+            ss[0] if lead else 0, *ss[-4:], bs[0] if lead else 0, *bs[-2:],
+            _count_slot(dev, "ba_solve"))
+    device_calls["ba_solve"] += 1
+    return x

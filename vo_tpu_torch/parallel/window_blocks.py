@@ -17,7 +17,7 @@ sums placed per tensor):
                                           blocks couples them here
   cross blocks Wc            local        (L, W_block, 6, 3)
   Schur fill-in S[w, v]      all-gather   of Wc, then of the S rows and b_red
-  reduced (6 W_eff) solve    every rank   spd_solve_blocked on the same numbers
+  reduced (6 W_eff) solve    every rank   kernels.ba_solve on the same numbers
   landmark back-substitution all-reduce   partial Wc^T dc sums
 
 then the global gauge (the oldest valid keyframe of ALL blocks), the scale
@@ -42,7 +42,7 @@ from vo_tpu_torch.models.ba import (
     _two_oldest_valid,
     where_window,
 )
-from vo_tpu_torch.ops.linalg import spd_solve_blocked
+from vo_tpu_torch.ops.kernels import ba_solve
 from vo_tpu_torch.parallel.mesh import (
     all_gather,
     axis_index,
@@ -151,7 +151,7 @@ def seqpar_ba_refine(
         S[first, first] += _GAUGE * eye6
         S[diag, diag] += (~kf_valid_all)[:, None, None] * _GAUGE * eye6
 
-        delta_c = spd_solve_blocked(S, -b_red)  # (W_eff, 6)
+        delta_c = ba_solve(S, -b_red)  # (W_eff, 6)
         solve_ok = torch.isfinite(delta_c).all()
         delta_c = torch.where(solve_ok, delta_c, 0.0)
         delta_c = torch.where(kf_valid_all[:, None], delta_c, 0.0)
